@@ -1,0 +1,421 @@
+#!/usr/bin/env python3
+"""Smoke run of cna_tpu_torch on one NVIDIA card (H100).
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (any failure exits non-zero):
+
+1. card: name and power limit (``nvidia-smi``);
+2. build: every CUDA kernel of the package, compiled by ``nvcc`` from
+   ``cna_tpu_torch/csrc`` into ``cna_tpu_torch/_build``;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shape and at extra shapes; timed with CUDA events
+   beside its bound and a PyTorch library yardstick;
+4. the slice: synthetic data (50 samples x 2,000 cells x 50 genes) ->
+   ``pp.pca`` -> ``pp.neighbors`` -> ``tl.association`` with 1,000
+   permutations, with the kernel launch counts set to 0 just before and
+   read just after;
+5. card vs CPU: the same chain at 5,000 cells on cuda in float32 and on
+   the CPU in float64, stage by stage (PCA scores, kNN lists up to
+   near-ties, fuzzy graph weights, the NAM diffused from the card's own
+   graph) and end to end (diffusion steps, k).
+
+The last two lines of standard output are a JSON object describing each
+kernel and the ``{"ok": true, "device": ...}`` line.  Without a CUDA
+device, or without the package beside this file, it exits non-zero and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# published H100 SXM peaks (data sheet, 700 W): float32 outside the
+# tensor cores, and HBM3 bandwidth
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+KNN_CASES = [(100_000, 20, 15), (1_037, 7, 5), (20_011, 50, 64)]
+DIST_ATOL = 1e-3  # float32 squared distances summed in different orders
+# card (float32) vs CPU (float64) at 5,000 cells, each stage on the same
+# input: float32 PCA scores; kNN lists that differ only by near-ties (a
+# float32 distance is off by ~1e-6 relative); fuzzy weights from the same
+# kNN lists; the NAM diffused from the same graph
+PCA_RTOL = 1e-4
+KNN_SHARE_MIN = 0.9999
+TIE_ATOL = 1e-4
+GRAPH_RTOL = 1e-4
+NAM_RTOL = 1e-4
+# fuzzy weights from the same PCA scores: a weight's exponent
+# (d - rho) / sigma carries the float32 distance error divided by sigma,
+# so the error is absolute, w * delta <= delta (a CPU float32 run: 4.4e-5)
+GRAPH_F32_DIST_ATOL = 5e-4
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def card_line():
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return None
+    res = subprocess.run(
+        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else None
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds per call of ``fn`` on the card, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def library_knn(x, k, block=4096):
+    """The yardstick: blocked ``torch.cdist`` + ``torch.topk`` (never used
+    by the package)."""
+    import torch
+
+    for s in range(0, x.shape[0], block):
+        torch.topk(torch.cdist(x[s:s + block], x), k, dim=1, largest=False)
+
+
+def check_knn_case(n, d, k, seed, timed):
+    """Kernel vs plain version at one shape; returns a record."""
+    import torch
+
+    from cna_tpu_torch.ops import knn
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    negd, idx = knn.knn_exact(x, k)
+    torch.cuda.synchronize()
+    p_negd, p_idx = knn.knn_exact_plain(x, k)
+    torch.cuda.synchronize()
+    dk, dp = -negd, -p_negd
+
+    rows = torch.arange(n, device="cuda", dtype=torch.int32)
+    if not bool((idx[:, 0] == rows).all()):
+        raise AssertionError(f"knn_exact {n}x{d} k={k}: a row does not "
+                             "start with itself")
+    if not bool((torch.diff(dk, dim=1) >= 0).all()):
+        raise AssertionError(f"knn_exact {n}x{d} k={k}: distances not "
+                             "ascending")
+    err = float((dk - dp).abs().max())
+    if err > DIST_ATOL:
+        raise AssertionError(f"knn_exact {n}x{d} k={k}: sorted distances "
+                             f"differ from the plain version by {err}")
+    # the ids must carry the distances reported for them
+    recomputed = ((x[idx.long()] - x[:, None, :]) ** 2).sum(-1)
+    id_err = float((recomputed - dk).abs().max())
+    if id_err > DIST_ATOL:
+        raise AssertionError(f"knn_exact {n}x{d} k={k}: ids disagree with "
+                             f"their distances by {id_err}")
+    # recall with ties allowed: an id the plain version lacks counts as a
+    # miss only if it is strictly closer than the plain k-th distance
+    same = (idx.long()[:, :, None] == p_idx.long()[:, None, :]).any(-1)
+    tie = dk >= dp[:, -1:] - DIST_ATOL
+    recall = float((same | tie).float().mean())
+    exact_id_share = float(same.float().mean())
+    if recall != 1.0:
+        raise AssertionError(f"knn_exact {n}x{d} k={k}: recall {recall}")
+
+    rec = dict(n=n, d=d, k=k, max_abs_err=err, recall=recall,
+               same_id_share=exact_id_share)
+    if timed:
+        rec["ms"] = cuda_ms(lambda: knn.knn_exact(x, k), 5)
+        rec["plain_ms"] = cuda_ms(lambda: knn.knn_exact_plain(x, k), 2)
+        rec["library_ms"] = cuda_ms(lambda: library_knn(x, k), 2)
+        flops = 2.0 * n * n * d
+        nbytes = 4.0 * n * d + 8.0 * n * k
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        rec["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+        rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return rec
+
+
+def main_path(ct):
+    """The slice at full size; returns (launch counts, record)."""
+    import torch
+
+    from cna_tpu_torch.ops import launch_counts, reset_launch_counts
+    from cna_tpu_torch.utils import profiling
+
+    ct.config.set_device("cuda")
+    ct.config.enable_x64(False)
+    d, samplem = ct.data.synthetic_dataset(
+        n_samples=50, cells_per_sample=2000, n_genes=50, seed=0)
+    y = samplem["case"].astype(float)
+    prof = profiling.enable_profiling()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ct.pp.pca(d, n_comps=20)
+    ct.pp.neighbors(d, n_neighbors=15)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = ct.tl.association(d, y, "id", Nnull=1000, seed=0,
+                            return_full=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = launch_counts()
+
+    n_first = len(prof.phases)
+    res2 = ct.tl.association(d, y, "id", Nnull=1000, seed=0,
+                             return_full=True)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    phases = [(p["phase"], round(p["seconds"], 4)) for p in prof.phases]
+
+    resolved = d.uns["neighbors"]["params"]["knn_method_resolved"]
+    if resolved != "pallas":
+        raise AssertionError(f"pp.neighbors resolved kNN to {resolved!r}, "
+                             "not the exact kernel")
+    if counts.get("knn_exact", 0) < 1:
+        raise AssertionError(f"the main path launched no knn_exact: {counts}")
+    if not np.isfinite(res.p) or not 0 < res.p <= 1:
+        raise AssertionError(f"association p = {res.p}")
+    if res2.p != res.p or res2.k != res.k:
+        raise AssertionError("a second association call disagreed")
+    for col in ("coef", "coef_fdr"):
+        if col not in d.obs:
+            raise AssertionError(f"obs[{col!r}] was not written")
+    coef = d.obs["coef"].to_numpy()
+    fdr = d.obs["coef_fdr"].to_numpy()
+    kept = res.kept
+    if not (np.isfinite(coef[kept]).all() and kept.sum() > 0):
+        raise AssertionError("obs['coef'] is not finite on kept cells")
+    if not ((fdr >= 0) & (fdr <= 1)).all():
+        raise AssertionError("obs['coef_fdr'] outside [0, 1]")
+    conn = d.obsp["connectivities"]
+    if conn.shape != (d.n_obs, d.n_obs) or abs(conn - conn.T).max() != 0:
+        raise AssertionError("connectivities are not a symmetric N x N CSR")
+
+    rec = dict(cells=d.n_obs, knn_method_resolved=resolved, p=res.p,
+               k=res.k, kept=int(kept.sum()),
+               graph_s=t1 - t0, association_first_s=t2 - t1,
+               association_second_s=t3 - t2, phases_first=phases[:n_first],
+               phases_second_association=phases[n_first:],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return counts, rec
+
+
+def knn_lists(d):
+    """(ids, dists) (N, k) from ``obsp['distances']``, self in column 0."""
+    dm = d.obsp["distances"]
+    n = d.n_obs
+    ids = np.concatenate([np.arange(n)[:, None], dm.indices.reshape(n, -1)],
+                         axis=1)
+    dists = np.concatenate([np.zeros((n, 1)), dm.data.reshape(n, -1)],
+                           axis=1)
+    return ids, dists
+
+
+def card_vs_cpu(ct, card="cuda"):
+    """The chain at 5,000 cells on the card in float32 against the CPU in
+    float64, stage by stage (each CPU stage takes the card's input to
+    that stage, so that float32 rounding upstream cannot move it), and
+    end to end.  ``card`` is the device of the float32 run."""
+    import importlib
+
+    import scipy.sparse as sp
+
+    nb = importlib.import_module("cna_tpu_torch.pp.neighbors")
+    from cna_tpu_torch.tools._nam import nam_arrays
+
+    def run(dev, x64, scores=None, conn=None):
+        ct.config.set_device(dev)
+        ct.config.enable_x64(x64)
+        d, samplem = ct.data.synthetic_dataset(
+            n_samples=50, cells_per_sample=100, n_genes=50, seed=1,
+            dtype=np.float64 if x64 else np.float32)
+        if scores is None:
+            ct.pp.pca(d, n_comps=20)
+        else:
+            d.obsm["X_pca"] = scores
+        ct.pp.neighbors(d, n_neighbors=15)
+        knn, own_conn = knn_lists(d), d.obsp["connectivities"]
+        if conn is not None:
+            d.obsp["connectivities"] = conn
+        y = samplem["case"].astype(float)
+        arrays, _ = nam_arrays(d, "id")
+        res = ct.tl.association(d, y, "id", Nnull=1000, null_y=null_y,
+                                return_full=True)
+        return dict(d=d, knn=knn, conn=own_conn, nsteps=arrays.nsteps,
+                    k=res.k, p=res.p, nam=res.nam.to_numpy())
+
+    _, samplem = ct.data.synthetic_dataset(
+        n_samples=50, cells_per_sample=100, n_genes=50, seed=1)
+    ys = samplem["case"].astype(float).to_numpy()
+    ys = (ys - ys.mean()) / ys.std(ddof=0)
+    rng = np.random.RandomState(7)
+    null_y = np.stack([ys[rng.permutation(len(ys))] for _ in range(1000)],
+                      axis=1)
+
+    cpu = run("cpu", True)
+    gpu = run(card, False)
+    g_scores = np.asarray(gpu["d"].obsm["X_pca"], dtype=np.float64)
+    g_conn = gpu["conn"]
+    # the CPU's float64 stages on the card's inputs: kNN on the card's
+    # PCA scores, and the NAM / test / FDR on the card's own graph
+    same = run("cpu", True, scores=g_scores, conn=g_conn.astype(np.float64))
+    rec = {}
+
+    # PCA, up to a sign per column
+    c_scores = np.asarray(cpu["d"].obsm["X_pca"])
+    sign = np.sign(np.sum(c_scores * g_scores, axis=0))
+    rec["pca_rel_err"] = float(np.max(np.abs(g_scores * sign - c_scores))
+                               / np.max(np.abs(c_scores)))
+
+    # kNN lists on the same scores: a list may differ only by a near-tie,
+    # which shows as equal sorted float64 distances of the two id lists
+    g_ids, g_d = gpu["knn"]
+    s_ids, s_d = same["knn"]
+    rec["knn_same_share"] = float(np.mean(np.sort(g_ids, 1)
+                                          == np.sort(s_ids, 1)))
+    differ = np.flatnonzero((np.sort(g_ids, 1) != np.sort(s_ids, 1)).any(1))
+    g_exact = np.sqrt(((g_scores[g_ids[differ]]
+                        - g_scores[differ, None, :]) ** 2).sum(-1))
+    tie_gap = np.abs(np.sort(g_exact, 1) - np.sort(s_d[differ], 1))
+    rec["knn_rows_differ"] = int(len(differ))
+    rec["knn_tie_gap"] = float(tie_gap.max()) if len(differ) else 0.0
+
+    # the fuzzy graph: the card's own kNN lists through the float64 build
+    ct.config.set_device("cpu")
+    ct.config.enable_x64(True)
+    ref = nb.fuzzy_connectivities(g_ids, g_d.astype(np.float64))
+    same_csr = (np.array_equal(ref.indptr, g_conn.indptr)
+                and np.array_equal(ref.indices, g_conn.indices))
+    rec["graph_same_csr"] = same_csr
+    rec["graph_rel_err"] = (float(np.max(np.abs(g_conn.data - ref.data)
+                                         / ref.data)) if same_csr else None)
+    # and against the float64 graph of the same scores, where both kNN
+    # lists agree on every row an entry touches
+    ok_rows = np.ones(g_ids.shape[0], bool)
+    ok_rows[differ] = False
+    coo = sp.coo_matrix(same["conn"])
+    keep = ok_rows[coo.row] & ok_rows[coo.col]
+    g_at = np.asarray(g_conn.tocsr()[coo.row[keep], coo.col[keep]]).ravel()
+    rec["graph_vs_f64_scores_abs_err"] = float(
+        np.max(np.abs(g_at - coo.data[keep])))
+
+    # NAM / test / FDR on the same (card's) graph
+    rec["same_graph"] = dict(
+        nsteps=(same["nsteps"], gpu["nsteps"]), k=(same["k"], gpu["k"]),
+        nam_rel_err=float(np.max(np.abs(gpu["nam"] - same["nam"]))
+                          / np.max(np.abs(same["nam"]))))
+    # end to end, each device on its own PCA and graph
+    rec["end_to_end"] = dict(
+        nsteps=(cpu["nsteps"], gpu["nsteps"]), k=(cpu["k"], gpu["k"]),
+        p=(cpu["p"], gpu["p"]),
+        nam_rel_err=float(np.max(np.abs(gpu["nam"] - cpu["nam"]))
+                          / np.max(np.abs(cpu["nam"]))))
+
+    failed = []
+    if rec["pca_rel_err"] > PCA_RTOL:
+        failed.append("PCA scores")
+    if rec["knn_same_share"] < KNN_SHARE_MIN or rec["knn_tie_gap"] > TIE_ATOL:
+        failed.append("kNN lists")
+    if not same_csr or rec["graph_rel_err"] > GRAPH_RTOL \
+            or rec["graph_vs_f64_scores_abs_err"] > GRAPH_F32_DIST_ATOL:
+        failed.append("fuzzy graph")
+    for key in ("same_graph", "end_to_end"):
+        r = rec[key]
+        if r["nsteps"][0] != r["nsteps"][1] or r["k"][0] != r["k"][1]:
+            failed.append(f"nsteps or k ({key})")
+    if rec["same_graph"]["nam_rel_err"] > NAM_RTOL:
+        failed.append("NAM")
+    if failed:
+        raise AssertionError(f"card and CPU disagree on {failed}: {rec}")
+    return rec
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    try:
+        import cna_tpu_torch as ct
+        from cna_tpu_torch.ops import _build, knn
+    except ImportError as exc:
+        print(f"chip_smoke: cna_tpu_torch not found beside this script "
+              f"({exc})", file=sys.stderr)
+        return 1
+
+    kind = torch.cuda.get_device_name(0)
+    smi = card_line()
+    log(f"card: {kind}; nvidia-smi: {smi}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    build_s = _build.build(knn.KERNEL)
+    log(f"build: {knn.KERNEL} nvcc {build_s:.2f} s, "
+        f"{time.perf_counter() - t0:.2f} s in all")
+    for line in _build.build_log(knn.KERNEL).splitlines():
+        if "registers" in line or "stack frame" in line:
+            log("  ptxas:", line.strip())
+
+    cases = [check_knn_case(n, d, k, seed=i, timed=(i == 0))
+             for i, (n, d, k) in enumerate(KNN_CASES)]
+    for rec in cases:
+        log("knn_exact vs plain:", json.dumps(rec))
+
+    counts, slice_rec = main_path(ct)
+    log("slice:", json.dumps(slice_rec))
+    log("main-path launches:", json.dumps(counts))
+
+    cmp_rec = card_vs_cpu(ct)
+    log("card vs cpu:", json.dumps(cmp_rec))
+
+    main_case = cases[0]
+    kernels = [{
+        "name": knn.KERNEL,
+        "route": "cuda",
+        "source": "cna_tpu_torch/csrc/knn_exact.cu",
+        "replaces": "cna_tpu/ops/knn_pallas.py:44",
+        "launches": counts.get(knn.KERNEL, 0),
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+        "recall": min(c["recall"] for c in cases),
+        "shape": [main_case["n"], main_case["d"], main_case["k"]],
+    }]
+    if smi:
+        log(smi)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

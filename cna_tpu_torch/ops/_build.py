@@ -1,0 +1,105 @@
+"""Build the package's CUDA kernels with ``nvcc`` and load them via ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (``extern "C"`` launchers
+that take device pointers and a stream) and compiles on its own into
+``_build/lib<name>-<hash>.so`` for ``sm_90a``; the hash of the source
+names the library, so an edited source is rebuilt and an unchanged one
+is reused.  Building happens at first use, never at import: the CPU-only
+test environment has no ``nvcc``.
+
+Every kernel wrapper counts its launches here (``count_launch``), so a
+run can show that its main path went through the hand-written kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LAUNCHES: dict[str, int] = {}
+
+
+def count_launch(name: str) -> None:
+    """Record one launch of kernel ``name`` (called by its wrapper only)."""
+    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+def launch_counts() -> dict:
+    """Launches per kernel since the last ``reset_launch_counts``."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the CUDA "
+        "kernels of cna_tpu_torch are compiled at first use and need the "
+        "CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register / shared-memory report) for ``name``."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless its library is built already;
+    return the seconds spent (0.0 when it was there).  Raises
+    RuntimeError with nvcc's output if the build fails."""
+    out = _target(name)
+    if out.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    out.with_suffix(".log").write_text(res.stdout)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                           f"{res.returncode}\n{res.stdout}")
+    os.replace(tmp, out)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build(name)
+        lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
+    return lib

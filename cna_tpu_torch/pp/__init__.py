@@ -1,0 +1,7 @@
+"""Preprocessing: PCA, kNN search, and graph construction on the device."""
+from .pca import pca, pca_array
+from .knn import knn_search
+from .neighbors import neighbors, fuzzy_connectivities
+
+__all__ = ["pca", "pca_array", "knn_search", "neighbors",
+           "fuzzy_connectivities"]

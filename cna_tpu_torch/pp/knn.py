@@ -1,0 +1,121 @@
+"""Exact k-nearest-neighbor search on the device.
+
+The reference outsources kNN to scanpy/pynndescent (approximate, CPU).
+Here kNN is a first-class on-device primitive:
+
+* ``'exact'``: blocked brute force in the input dtype, squared distances
+  ``|q|^2 + |x|^2 - 2 q.x`` with the cross term a matmul and a running
+  ``torch.topk`` merge across key blocks, so the full N x N distance
+  matrix is never materialized (the TPU package's ``pp/knn.py``);
+* ``'pallas'``: the exact hand-written kernel (``ops.knn``), float32; the
+  name is kept so that scripts written for the TPU package run unchanged.
+
+Each point is its own first neighbor (distance 0), the scanpy convention
+the fuzzy-connectivity code expects.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import config
+from ..utils.transfer import as_tensor, fetch
+
+_AUTO_EXACT_MAX_N = 20_000
+_AUTO_IVF_MIN_N = 262_144
+_METHODS = ("auto", "exact", "pallas", "approx", "ivf")
+_IVF_NOT_PORTED = (
+    "the IVF kNN index (the TPU package's pp/ivf.py, pp/ivf_fine.py and "
+    "its kernel _score_kernel) is not ported yet: ROADMAP.md queue 1 "
+    "item 2; use method='exact' or 'pallas' (exact search, O(N^2))")
+
+
+def resolve_method(n, method, device=None):
+    """Resolve 'auto' to a concrete kNN method for ``n`` points on
+    ``device`` (default: the configured device): exact up to 20,000
+    points, the exact kernel ('pallas') up to 262,144 on cuda and the
+    blocked search ('approx') elsewhere.  'ivf', and 'auto' above 262,144
+    points, raise NotImplementedError."""
+    if method not in _METHODS:
+        raise ValueError(f"unknown kNN method {method!r}; use one of "
+                         f"{_METHODS}")
+    if method == "ivf" or (method == "auto" and n > _AUTO_IVF_MIN_N):
+        raise NotImplementedError(_IVF_NOT_PORTED)
+    if method != "auto":
+        return method
+    if n <= _AUTO_EXACT_MAX_N:
+        return "exact"
+    dev = config.device() if device is None else torch.device(device)
+    return "pallas" if dev.type == "cuda" else "approx"
+
+
+def _knn_query_block(x, q_start, q_stop, sq_norms, k, key_block):
+    """Top-k nearest rows of x for each query row x[q_start:q_stop],
+    merging over key blocks.
+
+    The self pair's squared distance is set to exactly 0: the expansion
+    leaves rounding noise there (about 1e-15 in float64), which would
+    otherwise become ``rho`` of the fuzzy kernel in the rows where it
+    rounds positive.
+
+    Returns (neg_sq_dists (Q, k) descending, indices (Q, k) int64).
+    """
+    q = x[q_start:q_stop]
+    nq = q.shape[0]
+    n = x.shape[0]
+    q_norms = sq_norms[q_start:q_stop, None]  # (Q, 1)
+    q_ids = torch.arange(q_start, q_stop, device=q.device)[:, None]
+    best_d = torch.full((nq, k), -torch.inf, dtype=q.dtype, device=q.device)
+    best_i = torch.zeros((nq, k), dtype=torch.int64, device=q.device)
+    for start in range(0, n, key_block):
+        xb = x[start:start + key_block]
+        cross = q @ xb.T  # (Q, B)
+        d2 = q_norms + sq_norms[None, start:start + key_block] - 2.0 * cross
+        idx = torch.arange(start, start + xb.shape[0], device=q.device)
+        d2 = d2.masked_fill(idx[None, :] == q_ids, 0.0)
+        cat_d = torch.cat([best_d, -d2], dim=1)
+        cat_i = torch.cat([best_i, idx.expand(nq, -1)], dim=1)
+        best_d, pos = torch.topk(cat_d, k, dim=1)
+        best_i = torch.gather(cat_i, 1, pos)
+    return best_d, best_i
+
+
+def knn_device(x, k, method, query_block=4096, key_block=8192):
+    """kNN of the rows of tensor ``x`` for a resolved ``method``, left on
+    ``x``'s device: (indices (N, k) int32, distances (N, k))."""
+    if method == "pallas":
+        from ..ops.knn import knn_exact
+
+        neg_d, idx = knn_exact(x.to(torch.float32).contiguous(), k)
+    else:  # 'exact', and 'approx', which has no approximate search here
+        sq_norms = torch.sum(x * x, dim=1)
+        n = x.shape[0]
+        parts = [_knn_query_block(x, s, min(s + query_block, n), sq_norms,
+                                  k, key_block)
+                 for s in range(0, n, query_block)]
+        neg_d = torch.cat([p[0] for p in parts])
+        idx = torch.cat([p[1] for p in parts]).to(torch.int32)
+    # numerical floor: a duplicate point's distance can round negative
+    return idx, torch.sqrt(torch.clamp(-neg_d, min=0.0))
+
+
+def knn_search(points, k, query_block=4096, key_block=8192, method="auto"):
+    """kNN of ``points`` against themselves, on the configured device.
+
+    Returns (indices (N, k) int32, distances (N, k)) as numpy arrays, with
+    neighbors sorted by increasing distance; each point is its own first
+    neighbor.
+
+    ``method``:
+      * ``'exact'``: blocked ``torch.topk`` merge, in the input dtype;
+      * ``'pallas'``: the exact hand-written kernel (``ops.knn``), in
+        float32 — the CUDA kernel on cuda, its plain version on the CPU;
+      * ``'approx'``: runs the exact blocked search (PyTorch has no
+        counterpart of the TPU's ``approx_max_k``);
+      * ``'ivf'``: not ported yet (raises NotImplementedError);
+      * ``'auto'`` (default): ``resolve_method``.
+    """
+    x = as_tensor(points)
+    method = resolve_method(x.shape[0], method, x.device)
+    idx, dists = knn_device(x, k, method, query_block, key_block)
+    return fetch(idx), fetch(dists)

@@ -1,0 +1,120 @@
+"""PCA on the device, dense in-memory path.
+
+Centered (not scaled) principal components via an eigendecomposition of
+the gene-gene covariance: the Gram trick on the small axis, since
+n_genes << n_cells in the target workloads.  The two FLOP-heavy stages
+(the ``X^T X`` covariance and the score projection) are matmuls on the
+device; the (G, G) eigendecomposition runs on the host in numpy, as in
+the TPU package (``pp/pca.py:41-52``).
+
+Not ported yet (ROADMAP.md queue 1 item 4): sparse ``X`` and the
+chunked path the TPU package takes at ``n * g >= 16M`` elements; both
+raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.profiling import global_profiler
+from ..utils.transfer import as_tensor, fetch
+
+_PCA_DEV_KEY = "_cna_tpu_torch_pca_dev"
+_STREAM_MIN_ELEMS = 16_000_000
+
+
+def _cov_core(x):
+    xc = x - x.mean(dim=0, keepdim=True)
+    return (xc.T @ xc) / (x.shape[0] - 1)
+
+
+def _project(x, evecs):
+    xc = x - x.mean(dim=0, keepdim=True)
+    return xc @ evecs
+
+
+def _pca_device(x, n_comps):
+    """Covariance on device, eigh on host, projection on device.
+
+    Returns (scores_dev (N, n_comps), evals (n_comps,) np, evecs
+    (G, n_comps) np, total_var float).
+    """
+    cov = fetch(_cov_core(x))  # (G, G): tiny pull
+    evals, evecs = np.linalg.eigh(cov)
+    evals = evals[::-1]
+    evecs = evecs[:, ::-1]
+    comps = torch.as_tensor(np.ascontiguousarray(evecs[:, :n_comps]),
+                            dtype=x.dtype, device=x.device)
+    scores_dev = _project(x, comps)
+    return scores_dev, evals[:n_comps], evecs[:, :n_comps], float(cov.trace())
+
+
+def pca_array(x, n_comps=50):
+    """Return (scores (N, n_comps), explained variance, components) as
+    tensors on the configured device."""
+    x = as_tensor(x)
+    n_comps = min(n_comps, x.shape[1], x.shape[0])
+    scores_dev, evals, evecs, _ = _pca_device(x, n_comps)
+    return (scores_dev,
+            torch.as_tensor(evals.copy(), device=x.device),
+            torch.as_tensor(evecs.copy(), device=x.device))
+
+
+def pca(data, n_comps=50, key_added="X_pca"):
+    """Compute PCA of ``data.X`` into ``data.obsm[key_added]``.
+
+    Returns the scores (a host numpy array).  Variance diagnostics are
+    recorded in ``data.uns['pca']``.  The device tensor of the scores is
+    cached in ``data.uns`` so the downstream kNN (``pp.neighbors``) reads
+    it without a host round trip (``device_rep``).
+    """
+    if data.X is None:
+        raise ValueError("data.X is required for PCA")
+    import scipy.sparse as sp
+
+    if sp.issparse(data.X):
+        raise NotImplementedError(
+            "PCA of a sparse X is not ported yet (ROADMAP.md queue 1 item "
+            "4); densify X first if it fits in memory")
+    n, g = data.X.shape
+    if n * g >= _STREAM_MIN_ELEMS:
+        raise NotImplementedError(
+            f"PCA of a dense {n} x {g} X (>= {_STREAM_MIN_ELEMS} elements) "
+            "takes the chunked path, which is not ported yet (ROADMAP.md "
+            "queue 1 item 4)")
+    n_comps = min(n_comps, g, n)
+    with global_profiler().phase("pca_compute", cells=int(n)):
+        x = as_tensor(data.X)
+        scores_dev, variance, components, total_var = _pca_device(x, n_comps)
+        scores = fetch(scores_dev)
+    data.obsm[key_added] = scores
+    data.uns[_PCA_DEV_KEY] = (scores, scores_dev, _rep_fingerprint(scores))
+    data.uns["pca"] = {
+        "variance": variance,
+        "variance_ratio": variance / total_var,
+        "components": components,
+    }
+    return scores
+
+
+def _rep_fingerprint(arr):
+    """Cheap content fingerprint of a host score array: shape, dtype, and
+    a strided element sample.  Guards the device-twin cache against
+    in-place mutation of ``obsm['X_pca']`` (object identity alone would
+    serve a stale device copy)."""
+    arr = np.asarray(arr)
+    flat = arr.ravel()
+    sample = flat[:: max(flat.size // 64, 1)][:64]
+    return (arr.shape, str(arr.dtype), sample.tobytes())
+
+
+def device_rep(data, rep):
+    """The device tensor of ``rep`` if it is this ``pca``'s output (same
+    object AND unchanged content), else ``rep`` itself."""
+    cached = data.uns.get(_PCA_DEV_KEY)
+    if cached is None or cached[0] is not rep:
+        return rep
+    if cached[2] == _rep_fingerprint(rep):
+        return cached[1]
+    return rep

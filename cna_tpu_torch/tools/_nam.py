@@ -1,0 +1,588 @@
+"""Neighborhood Abundance Matrix (NAM) pipeline on one device.
+
+Reimplements the reference's L2/L3 layers (``_nam.py``), following the
+TPU package's ``tools/_nam.py``:
+
+* graph diffusion of the cells-by-samples one-hot matrix (the hot SpMM,
+  reference ``_nam.py:21-41``) with the adaptive kurtosis stopping rule
+  (``_nam.py:56-71``);
+* batch-kurtosis QC of neighborhoods (``_nam.py:78-99``);
+* Gram-trick SVD of the standardized NAM (``_nam.py:102-115``);
+* covariate/batch residualization with the cumulative ridge sweep
+  (``_nam.py:118-177``).
+
+The data-dependent loops (the diffusion stop and the ridge-sweep early
+exit) are host loops with one scalar ``.item()`` per step; the per-step
+diagnostic trails (kurtosis, R²) stay in device buffers and are printed
+afterwards.  Only shape-changing decisions (QC column drops) sync a
+small mask to the host.
+
+Graph formats: 'bucketed' (the default) and 'ell'.  'block', 'hybrid'
+and 'banded', the ``mesh=`` paths and NAM savepoints are not ported yet
+(ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pandas as pd
+import torch
+
+from ..core.results import Result
+from ..graph.ell import EllGraph, from_scipy
+from ..ops import linalg, moments, spmm
+from ..utils.transfer import as_tensor, fetch, to_device
+from ._out import select_output
+
+_ELL_CACHE_KEY = "_cna_tpu_torch_ell_graph"
+_FORMAT_KEY = "_cna_tpu_torch_graph_format"
+_FORMATS = ("ell", "bucketed")
+_LATER_FORMATS = ("block", "hybrid", "banded")
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to cna_tpu_torch yet (ROADMAP.md queue 1 "
+        f"item {item})")
+
+
+def get_connectivity(data):
+    """Fetch the cell-cell connectivity graph from an AnnData-like object.
+
+    Accepts ``data.obsp['connectivities']`` (modern layout) or
+    ``data.uns['neighbors']['connectivities']`` (pre-0.7.2 anndata layout),
+    mirroring reference ``get_connectivity`` (``_nam.py:12-19``) without
+    the package-version sniff: both locations are simply probed.
+    """
+    obsp = getattr(data, "obsp", None)
+    if obsp is not None and "connectivities" in obsp:
+        return obsp["connectivities"]
+    uns = getattr(data, "uns", None)
+    if uns is not None and "neighbors" in uns and "connectivities" in uns["neighbors"]:
+        return uns["neighbors"]["connectivities"]
+    raise KeyError(
+        "no cell-cell graph found: expected data.obsp['connectivities'] "
+        "(or data.uns['neighbors']['connectivities']); run a neighbors/"
+        "graph-construction step first (e.g. cna_tpu_torch.pp.neighbors)"
+    )
+
+
+def set_graph_format(data, fmt: str) -> None:
+    """Choose the device SpMM format for ``data``:
+
+    * 'bucketed' (pipeline default) — degree-sorted per-width ELL buckets
+      (``graph.buckets``): exact gather SpMM over ~nnz slots instead of
+      N*K_p98, a win whenever the degree distribution is skewed;
+    * 'ell' — single-width row-gather SpMM with a COO overflow tail.
+
+    'block', 'hybrid' and 'banded' raise NotImplementedError (not ported
+    yet).
+    """
+    if fmt in _LATER_FORMATS:
+        raise _not_ported(f"graph format {fmt!r}", 3)
+    if fmt not in _FORMATS:
+        raise ValueError(
+            f"unknown graph format {fmt!r}; use 'ell' or 'bucketed'")
+    data.uns[_FORMAT_KEY] = fmt
+    data.uns.pop(_ELL_CACHE_KEY, None)
+
+
+def get_device_graph(data, fmt=None):
+    """Device graph for ``data`` in the configured format, cached in
+    ``data.uns``.
+
+    Returns (graph, reordering): None for 'ell'; for 'bucketed' the
+    degree ``Reordering`` whose permuted axes the buckets are built on
+    (callers permute the diffusion state in and out once per pipeline).
+    """
+    conn = get_connectivity(data)
+    if isinstance(conn, EllGraph):
+        return conn, None
+    uns = getattr(data, "uns", None)
+    if fmt is None:
+        fmt = uns.get(_FORMAT_KEY, "ell") if uns is not None else "ell"
+    if fmt in _LATER_FORMATS:
+        raise _not_ported(f"graph format {fmt!r}", 3)
+    cache_key = f"{_ELL_CACHE_KEY}:{fmt}"
+    if uns is not None:
+        cached = uns.get(cache_key)
+        if cached is not None and cached[0] is conn:
+            return cached[1], cached[2]
+
+    if fmt == "bucketed":
+        from ..graph.buckets import degree_ordering, from_scipy_buckets
+        from ..graph.reorder import permute_graph
+
+        ordering = degree_ordering(conn)
+        graph = from_scipy_buckets(permute_graph(conn, ordering))
+    else:
+        ordering = None
+        graph = from_scipy(conn)
+    if uns is not None:
+        uns[cache_key] = (conn, graph, ordering)
+    return graph, ordering
+
+
+def _auto_block_rows(n, k, s):
+    """Row-block size bounding the gather buffer to ~256M elements."""
+    budget = 1 << 28
+    per_row = max(k * s, 1)
+    if n * per_row <= budget:
+        return None
+    return max(1024, budget // per_row)
+
+
+def _adaptive_loop(s0, c_counts, step, maxnsteps, nsteps, n_cells):
+    """The adaptive diffusion loop, generic over the step.
+
+    Replicates reference ``_nam``'s stepping (``_nam.py:56-71``): after
+    each step compute the median (across cells) excess kurtosis of the
+    count-normalized state over samples, and the 20th-percentile
+    step-to-step R²; stop when the kurtosis drop is < 3 after >= 3 steps
+    (or after exactly ``nsteps``), capped at ``maxnsteps``.  The host
+    reads one scalar per step, and only once the stopping rule can fire.
+
+    ``step``: callable s -> s' (one diffusion update).  ``n_cells``:
+    number of real cells when ``s0`` carries zero padding rows.
+
+    Returns (s_final, steps_taken, medkurt trail, R² trail); the trails
+    are (maxnsteps,) device buffers whose entries past ``steps_taken``
+    hold an inf sentinel.
+    """
+    opts = dict(dtype=s0.dtype, device=s0.device)
+    mk_buf = torch.full((maxnsteps,), torch.inf, **opts)
+    r2_buf = torch.full((maxnsteps,), torch.inf, **opts)
+    s, old_s = s0, torch.zeros_like(s0)
+    prevmedkurt = torch.tensor(torch.inf, **opts)
+    i = 0
+    while i < maxnsteps:
+        s_new = step(s)
+        snormed = s_new / c_counts[None, :]
+        kurt = moments.kurtosis(snormed, axis=1)[:n_cells]
+        medkurt = moments.median(kurt)
+        r2 = moments.column_r2_counted(s_new, old_s, n_cells)
+        # +inf marks zero-variance columns; numpy's percentile would be
+        # NaN if any column were NaN, so propagate the sentinel the same way
+        inf_r2 = torch.isinf(r2)
+        r2p20 = torch.where(
+            inf_r2.any(), torch.inf,
+            moments.quantile(torch.where(inf_r2, 2.0, r2), 0.2))
+        mk_buf[i] = medkurt
+        r2_buf[i] = r2p20
+        i += 1
+        if nsteps is None:
+            done = i >= 3 and bool((prevmedkurt - medkurt < 3).item())
+        else:
+            done = i >= nsteps
+        s, old_s, prevmedkurt = s_new, s_new, medkurt
+        if done:
+            break
+    return s, i, mk_buf, r2_buf
+
+
+def _diffuse_adaptive(s0, graph, colsums, c_counts, self_weight,
+                      maxnsteps=15, nsteps=None, block_rows=None,
+                      n_true=None):
+    """Adaptive diffusion with the format-dispatched SpMM."""
+    n_cells = s0.shape[0] if n_true is None else n_true
+
+    def step(s):
+        return spmm.diffusion_step(s, graph, colsums, self_weight,
+                                   block_rows=block_rows)
+
+    return _adaptive_loop(s0, c_counts, step, maxnsteps, nsteps, n_cells)
+
+
+def diffuse_stepwise(data, s, maxnsteps=15, show_progress=False, self_weight=1):
+    """Generator over lazy-random-walk diffusion steps of ``s``.
+
+    Public low-level primitive (reference ``_nam.py:21-34``).  ``s`` may be
+    a pandas DataFrame (cells x anything) or an array; a DataFrame input
+    yields DataFrames with its labels, any other input yields tensors.
+    """
+    out = select_output(show_progress)
+    graph, ordering = get_device_graph(data, fmt="ell")
+    labels = None
+    if isinstance(s, pd.DataFrame):
+        labels = (s.index, s.columns)
+        s = s.to_numpy()
+    s = to_device(s, graph.device, graph.dtype)
+    colsums = graph.colsums(self_weight)
+    block_rows = _auto_block_rows(graph.n_cells, graph.max_degree, s.shape[1])
+    for i in range(maxnsteps):
+        out("\ttaking step", i + 1)
+        s = spmm.diffusion_step(s, graph, colsums, self_weight,
+                                block_rows=block_rows)
+        if labels is not None:
+            yield pd.DataFrame(fetch(s), index=labels[0], columns=labels[1])
+        else:
+            yield s
+
+
+def diffuse(data, s, nsteps, show_progress=False, self_weight=1):
+    """Run exactly ``nsteps`` diffusion steps (reference ``_nam.py:36-41``)."""
+    for s in diffuse_stepwise(
+        data, s, maxnsteps=nsteps, show_progress=show_progress,
+        self_weight=self_weight,
+    ):
+        pass
+    return s
+
+
+@dataclasses.dataclass
+class NamArrays:
+    """Device-resident NAM with its labels.
+
+    ``nam``: (n_samples, n_cells) — sample s's relative abundance in each
+    cell's diffused neighborhood (the transpose at reference ``_nam.py:73``).
+    """
+
+    nam: torch.Tensor
+    samples: pd.Index
+    cells: pd.Index
+    nsteps: int = 0
+
+    def to_df(self) -> pd.DataFrame:
+        return pd.DataFrame(fetch(self.nam), index=self.samples,
+                            columns=self.cells)
+
+
+def _onehot_device(codes, n_samples, dtype, device):
+    """(N,) int sample codes -> (N, n_samples) one-hot on the device.
+
+    Code -1 (filtered/padding cell) produces an all-zero row.
+    """
+    codes = torch.as_tensor(codes, device=device)
+    samples = torch.arange(n_samples, device=device)
+    return (codes[:, None] == samples[None, :]).to(dtype)
+
+
+def _nam(data, sid_name, sids=None, nsteps=None, maxnsteps=15, self_weight=1,
+         show_progress=False) -> NamArrays:
+    """Build the NAM via diffusion with the adaptive kurtosis stop.
+
+    Mirrors reference ``_nam`` (``_nam.py:44-76``): one-hot cells->samples,
+    diffuse until the median per-cell excess kurtosis (across samples, on
+    count-normalized state) drops by <3 between steps (minimum 3 steps),
+    or exactly ``nsteps`` if given; normalize by per-sample cell counts and
+    transpose.
+    """
+    out = select_output(show_progress)
+
+    # cells->samples one-hot (reference ``_nam.py:51`` pd.get_dummies):
+    # column order is sorted uniques, or the category order (including
+    # unused categories) for categorical dtype.  Only the code vector
+    # crosses to the device; the (N, S) one-hot is built there.
+    obs_sids = data.obs[sid_name]
+    if isinstance(obs_sids.dtype, pd.CategoricalDtype):
+        codes = obs_sids.cat.codes.to_numpy().astype(np.int64)
+        samples = pd.Index(obs_sids.cat.categories)
+    else:
+        codes64, cats = pd.factorize(obs_sids, sort=True)
+        codes = codes64.astype(np.int64)
+        samples = pd.Index(cats)
+    if sids is not None:
+        sids = pd.Index(sids)
+        col_pos = samples.get_indexer(sids)
+        if (col_pos < 0).any():
+            raise KeyError(list(sids[col_pos < 0][:5]))
+        code_map = np.full(len(samples) + 1, -1, dtype=np.int64)
+        code_map[col_pos] = np.arange(len(sids), dtype=np.int64)
+        codes = code_map[codes]  # codes==-1 (NaN sid) stays -1 via [-1]
+        samples = sids
+    n_samples = len(samples)
+    cells = data.obs.index
+    n_cells = len(cells)
+    c_counts_host = np.bincount(codes[codes >= 0], minlength=n_samples)
+
+    uns = getattr(data, "uns", None)
+    user_fmt = uns.get(_FORMAT_KEY) if uns is not None else None
+    # default format: degree-bucketed ELL (exact, ~nnz gathered slots)
+    graph, ordering = get_device_graph(
+        data, fmt=None if user_fmt is not None else "bucketed")
+    is_block = ordering is not None or not isinstance(graph, EllGraph)
+    dtype, dev = graph.dtype, graph.device
+    if is_block:
+        if ordering is not None:
+            codes = codes[ordering.perm]
+        n_pad = graph.n_rows
+        if n_pad > codes.shape[0]:
+            # padding rows get code -1: an all-zero one-hot row
+            codes = np.pad(codes, (0, n_pad - codes.shape[0]),
+                           constant_values=-1)
+        block_rows = None
+        n_true = n_cells
+    else:
+        block_rows = _auto_block_rows(graph.n_cells, graph.max_degree,
+                                      n_samples)
+        n_true = None
+    s0 = _onehot_device(codes, n_samples, dtype, dev)
+    c_counts = torch.as_tensor(c_counts_host, dtype=dtype, device=dev)
+    colsums = graph.colsums(self_weight)
+
+    s, steps_taken, mk_buf, r2_buf = _diffuse_adaptive(
+        s0, graph, colsums, c_counts, self_weight,
+        maxnsteps=maxnsteps, nsteps=nsteps, block_rows=block_rows,
+        n_true=n_true)
+    if out.enabled:
+        _print_diffusion_trail(out, mk_buf, r2_buf, steps_taken, nsteps,
+                               maxnsteps)
+
+    if is_block:
+        # back to the caller's cell order (and drop padding rows)
+        if ordering is not None:
+            s = s[torch.as_tensor(ordering.inv, device=dev)]
+        else:
+            s = s[:n_cells]
+    nam = (s / c_counts[None, :]).T  # (samples, cells)
+    return NamArrays(nam=nam, samples=samples, cells=cells, nsteps=steps_taken)
+
+
+def _print_diffusion_trail(out, mk_buf, r2_buf, steps_taken, nsteps,
+                           maxnsteps):
+    """Print the per-step kurtosis/R² diagnostic trail (the reference's
+    documented UX — its demo tells users to read this, ``_nam.py:62-66``)."""
+    mk = fetch(mk_buf)
+    # render the zero-variance sentinel (+inf) as the nan the reference
+    # prints for the same situation (step 1, ``_nam.py:56-61``)
+    r2 = fetch(r2_buf).copy()
+    r2[np.isinf(r2)] = np.nan
+    for i in range(steps_taken):
+        out("\ttaking step", i + 1)
+        out("\tmedian kurtosis:", mk[i] + 3)
+        out("\t20th percentile R2(t,t-1):", r2[i])
+    if nsteps is None and steps_taken < maxnsteps:
+        out("stopping after", steps_taken, "steps")
+
+
+def _encode_batches(batches: pd.Series, samples: pd.Index, device):
+    """Align sample-level batch labels to ``samples`` and encode as int ids
+    in sorted-unique order (matching ``np.unique`` iteration at reference
+    ``_nam.py:81``)."""
+    aligned = batches.reindex(samples)
+    uniq, ids = np.unique(aligned.to_numpy(), return_inverse=True)
+    return uniq, torch.as_tensor(ids.astype(np.int64), device=device), len(uniq)
+
+
+def _qc_nam_arrays(nam_arrays: NamArrays, batches: pd.Series, show_progress=False):
+    """Drop batchy neighborhoods (reference ``_qc_nam``, ``_nam.py:85-99``).
+
+    Returns (filtered NamArrays, keep bool array over cells).
+    """
+    out = select_output(show_progress)
+    _, ids, nb = _encode_batches(batches, nam_arrays.samples,
+                                 nam_arrays.nam.device)
+    if nb == 1:
+        keep = np.repeat(True, nam_arrays.nam.shape[1])
+        return nam_arrays, keep
+
+    kurt = fetch(moments.batch_kurtosis(nam_arrays.nam, ids, nb))
+    threshold = max(6, 2 * np.median(kurt))
+    out("throwing out neighborhoods with batch kurtosis >=", threshold)
+    keep = kurt < threshold
+    out("keeping", keep.sum(), "neighborhoods")
+
+    keep_idx = torch.as_tensor(np.nonzero(keep)[0], device=nam_arrays.nam.device)
+    filtered = NamArrays(
+        nam=nam_arrays.nam[:, keep_idx],
+        samples=nam_arrays.samples,
+        cells=nam_arrays.cells[keep],
+        nsteps=nam_arrays.nsteps,
+    )
+    return filtered, keep
+
+
+def svd_nam(NAM):
+    """SVD of a (samples x neighborhoods) NAM via the S x S Gram matrix.
+
+    Mirrors reference ``svd_nam`` (``_nam.py:102-115``): center and
+    standardize columns (pandas ddof=1), then eigen-decompose the Gram.
+    Returns labeled (U DataFrame, squared-singular-value Series, V
+    DataFrame) with PC1.. columns.
+    """
+    if isinstance(NAM, pd.DataFrame):
+        index, columns = NAM.index, NAM.columns
+        arr = as_tensor(NAM.to_numpy())
+    else:
+        arr = NAM if isinstance(NAM, torch.Tensor) else as_tensor(NAM)
+        index = pd.RangeIndex(arr.shape[0])
+        columns = pd.RangeIndex(arr.shape[1])
+    _, u, svs, v = linalg.standardize_and_gram_svd(arr)
+    pcs = ["PC" + str(i) for i in range(1, u.shape[1] + 1)]
+    return (
+        pd.DataFrame(fetch(u), index=index, columns=pcs),
+        pd.Series(fetch(svs), index=pcs),
+        pd.DataFrame(fetch(v), index=columns, columns=pcs),
+    )
+
+
+_DEFAULT_RIDGES = (1e5, 1e4, 1e3, 1e2, 1e1, 1e0, 1e-1, 1e-2, 1e-3, 1e-4, 0)
+
+
+def _ridge_sweep(nam_c, c, ridges, batch_ids, n_batch_cols, num_batches):
+    """The cumulative ridge residualization sweep.
+
+    Replicates reference ``_nam.py:141-156`` exactly, including the
+    compounding ``NAM_ = M @ NAM_`` across iterations and last-M-wins:
+    for each ridge in the schedule build
+    ``M = I - C (C'C + ridge*n*L)^-1 C'``, apply it cumulatively, and
+    stop once the median batch kurtosis of the running NAM is <= 6.
+
+    Returns (nam_resid, M_last, n_ridges_used, median-kurtosis trail);
+    trail entries past the exit hold an inf sentinel.
+    """
+    nridges = ridges.shape[0]
+    medk_buf = torch.full((nridges,), torch.inf, dtype=nam_c.dtype,
+                          device=nam_c.device)
+    nam_r = nam_c
+    m_proj = torch.eye(nam_c.shape[0], dtype=nam_c.dtype, device=nam_c.device)
+    i = 0
+    while i < nridges:
+        m_proj = linalg.residual_projector(c, ridge=ridges[i],
+                                           n_batch_cols=n_batch_cols)
+        nam_r = m_proj @ nam_r
+        kurt = moments.batch_kurtosis(nam_r, batch_ids, num_batches)
+        medk = moments.median(kurt)
+        medk_buf[i] = medk
+        i += 1
+        if bool((medk <= 6).item()):
+            break
+    return nam_r, m_proj, i, medk_buf
+
+
+def _resid_nam_core(arr, covs_arr, batches, samples, ridges=None,
+                    show_progress=False):
+    """Device core of the residualization: returns a dict of tensors.
+
+    ``arr``: (n, cells) NAM rows aligned to ``samples``.
+    """
+    out = select_output(show_progress)
+    n = arr.shape[0]
+    opts = dict(dtype=arr.dtype, device=arr.device)
+
+    nam_c = arr - arr.mean(dim=0)
+    if covs_arr is None:
+        covs_arr = torch.zeros((n, 0), **opts)
+    else:
+        covs_arr = moments.standardize(torch.as_tensor(np.array(covs_arr),
+                                                       **opts),
+                                       ddof=1, axis=0)
+
+    single_batch = batches is None or len(np.unique(batches)) == 1
+    if single_batch:
+        c = covs_arr
+        m_proj = linalg.residual_projector(c)
+        nam_r = m_proj @ nam_c
+    else:
+        b_dummies = pd.get_dummies(batches)
+        b_arr = moments.standardize(
+            torch.as_tensor(np.array(b_dummies, dtype=float), **opts),
+            ddof=1, axis=0)
+        c = torch.cat([b_arr, covs_arr], dim=1)
+        nbcols = b_arr.shape[1]
+        _, ids, nb = _encode_batches(batches, samples, arr.device)
+
+        ridge_schedule = torch.as_tensor(
+            ridges if ridges is not None else _DEFAULT_RIDGES, **opts)
+        nam_r, m_proj, nridges, medk_buf = _ridge_sweep(
+            nam_c, c, ridge_schedule, ids, nbcols, nb)
+        if out.enabled:
+            medk = fetch(medk_buf)
+            sched = fetch(ridge_schedule)
+            for i in range(nridges):
+                out("\twith ridge", sched[i], "median batch kurtosis = ",
+                    medk[i])
+
+    # standardize (pandas ddof=1, no recentering — reference ``_nam.py:159``;
+    # the exposed namresid is THIS matrix, while svd_nam additionally
+    # centers+standardizes its own local copy, reference ``:103-104,163``)
+    nam_r = nam_r / moments.colstd(nam_r, ddof=1, axis=0)[None, :]
+    _, u, svs, v = linalg.standardize_and_gram_svd(nam_r)
+    return dict(m=m_proj, r=int(c.shape[1]), namresid=nam_r, u=u, svs=svs,
+                v=v)
+
+
+def _resid_nam(NAM, covs, batches, ridges=None, npcs=None, show_progress=False):
+    """Residualize covariates/batches out of the NAM, standardize, SVD.
+
+    Mirrors reference ``_resid_nam`` (``_nam.py:118-177``), including the
+    cumulative ``NAM_ = M @ NAM_`` compounding across the ridge sweep and
+    the last-M-wins coupling into the association test.
+
+    ``NAM`` may be a DataFrame (samples x cells) or a ``NamArrays``.
+    Returns a ``Result`` with the reference's fields (large DataFrames
+    materialized lazily from device tensors) plus the device ``_dev``
+    tensors used by the association core.
+    """
+    if isinstance(NAM, NamArrays):
+        samples, cells = NAM.samples, NAM.cells
+        arr = NAM.nam
+    else:
+        samples, cells = NAM.index, NAM.columns
+        arr = as_tensor(NAM.to_numpy(dtype=float))
+
+    covs_arr = None if covs is None else covs.to_numpy(dtype=float)
+    dev = _resid_nam_core(arr, covs_arr, batches, samples, ridges=ridges,
+                          show_progress=show_progress)
+    n = arr.shape[0]
+    if npcs is None:
+        npcs = int(dev["v"].shape[1])
+
+    pcs = ["PC" + str(i) for i in range(1, dev["u"].shape[1] + 1)]
+    res = Result()
+    res._dev = Result(samples=samples, cells=cells, **dev)
+    res.r = dev["r"]
+    res.set_lazy("M", lambda: pd.DataFrame(
+        fetch(dev["m"]), index=samples, columns=samples))
+    res.set_lazy("namresid", lambda: pd.DataFrame(
+        fetch(dev["namresid"]), index=samples, columns=cells))
+    res.set_lazy("namresid_sampleXpc", lambda: pd.DataFrame(
+        fetch(dev["u"]), index=samples, columns=pcs))
+    res.set_lazy("namresid_nbhdXpc", lambda: pd.DataFrame(
+        fetch(dev["v"]), index=cells, columns=pcs))
+    res.set_lazy("namresid_svs", lambda: pd.Series(
+        fetch(dev["svs"]), index=pcs)[:npcs])
+    res.set_lazy("namresid_varexp", lambda: pd.Series(
+        fetch(dev["svs"]), index=pcs) / n / len(cells))
+    return res
+
+
+def nam(data, sid_name, batches=None, nsteps=None, self_weight=1,
+        max_frac_pcs=0.15, suffix="", ks=None, show_progress=False, **kwargs):
+    """Compute and QC the NAM (public wrapper, reference ``_nam.py:179-193``).
+
+    ``max_frac_pcs``/``ks``/``**kwargs`` are accepted and ignored so that
+    ``association`` can forward one kwargs bag to both pipeline stages,
+    exactly as the reference does.
+
+    Returns (NAM DataFrame [samples x kept-cells] as float, keep bool array).
+    """
+    nam_qc, keep = nam_arrays(data, sid_name, batches=batches, nsteps=nsteps,
+                              self_weight=self_weight,
+                              show_progress=show_progress)
+    return nam_qc.to_df().astype(float), keep
+
+
+def nam_arrays(data, sid_name, batches=None, nsteps=None, self_weight=1,
+               show_progress=False, mesh=None, nam_savepoint=None, **kwargs):
+    """Device-resident variant of ``nam``: returns (NamArrays, keep).
+
+    ``mesh`` and ``nam_savepoint`` are not ported yet and raise
+    NotImplementedError when given.
+    """
+    if mesh is not None:
+        raise _not_ported("mesh= (several devices)", 8)
+    if nam_savepoint is not None:
+        raise _not_ported("nam_savepoint= (NAM checkpoints)", 7)
+    out = select_output(show_progress)
+
+    if batches is None:
+        sids = data.obs[sid_name].unique()
+        batches = pd.Series(np.ones(len(sids)), index=sids)
+
+    out("computing NAM")
+    arrays = _nam(data, sid_name, nsteps=nsteps, self_weight=self_weight,
+                  show_progress=show_progress)
+    return _qc_nam_arrays(arrays, batches, show_progress=show_progress)

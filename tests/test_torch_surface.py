@@ -1,0 +1,190 @@
+"""cna_tpu_torch's package boundary: what it imports, its namespace, its
+device policy and the paths that are not ported yet."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pandas as pd
+import pytest
+import scipy.sparse as sp
+import torch
+
+import cna_tpu_torch as ct
+from cna_tpu_torch import config
+from cna_tpu_torch.ops import _build
+
+from .torch_parity import torch_cpu_x64  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "cna_tpu_torch"
+
+
+def test_import_pulls_in_neither_jax_nor_cna_tpu():
+    code = ("import sys, cna_tpu_torch, cna_tpu_torch.ops.knn; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'cna_tpu' "
+            "or m.startswith('cna_tpu.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sources_name_neither_jax_nor_cna_tpu():
+    files = [*PKG.rglob("*.py"), *PKG.rglob("*.cu"), ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    pattern = re.compile(r"\bjax\b|cna_tpu\.", re.IGNORECASE)
+    hits = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+            for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pattern.search(line)]
+    assert not hits, "\n".join(hits)
+
+
+def test_namespace_mirrors_the_tpu_package():
+    for name in ("association", "nam", "svd_nam", "diffuse",
+                 "diffuse_stepwise", "CellData", "tl", "ut", "config"):
+        assert hasattr(ct, name), name
+    for name in ("association", "nam", "svd_nam", "diffuse",
+                 "diffuse_stepwise", "set_graph_format"):
+        assert callable(getattr(ct.tl, name)), name
+    for name in ("pca", "pca_array", "knn_search", "neighbors",
+                 "fuzzy_connectivities"):
+        assert callable(getattr(ct.pp, name)), name
+    assert callable(ct.ut.graph_from_numpy)
+    assert ct.association is ct.tl.association
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is valid")
+    try:
+        config.set_device(None)
+        with pytest.raises(RuntimeError, match="set_device\\('cpu'\\)"):
+            config.device()
+        d = ct.CellData(X=np.random.RandomState(0).randn(30, 4))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ct.pp.pca(d, n_comps=2)
+    finally:
+        config.set_device("cpu")
+    assert config.device() == torch.device("cpu")
+
+
+def test_precision_policy_and_tf32_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert config.default_float() == torch.float64
+    try:
+        config.enable_x64(False)
+        assert config.default_float() == torch.float32
+        assert ct.ut.transfer.as_tensor(np.zeros(2)).dtype == torch.float32
+        assert ct.ut.transfer.as_tensor(np.zeros(2, np.int64)).dtype \
+            == torch.float32
+    finally:
+        config.enable_x64(True)
+    assert ct.ut.transfer.as_tensor(np.zeros(2)).dtype == torch.float64
+    assert ct.ut.transfer.as_tensor(np.zeros(2, np.float32)).dtype \
+        == torch.float32
+
+
+def test_runtime_checks_switch():
+    from cna_tpu_torch.utils import checks
+
+    with pytest.raises(FloatingPointError, match="'ncorrs'"):
+        checks.assert_finite(p=0.5, ncorrs=np.array([0.1, np.nan]))
+    try:
+        config.enable_runtime_checks(False)
+        checks.assert_finite(ncorrs=np.array([np.inf]))
+    finally:
+        config.enable_runtime_checks(True)
+    assert checks.runtime_checks_enabled()
+
+
+def test_profiler_phases_and_trace(tmp_path):
+    from cna_tpu_torch.utils import profiling
+
+    prof = profiling.PhaseProfiler(enabled=True, trace_dir=str(tmp_path))
+    with prof.trace():
+        with prof.phase("matmul", cells=100):
+            torch.randn(64, 64) @ torch.randn(64, 64)
+    (rec,) = prof.phases
+    assert rec["phase"] == "matmul" and rec["cells_per_s"] > 0
+    assert (tmp_path / "trace.json").stat().st_size > 0
+    lines = []
+    prof.report(out=lines.append)
+    assert lines[-1].split()[0] == "TOTAL"
+
+
+def _demo():
+    rng = np.random.RandomState(0)
+    x = rng.randn(240, 6)
+    sids = np.repeat([f"s{i}" for i in range(12)], 20)
+    d = ct.CellData(X=x, obs=pd.DataFrame({"sample": sids}))
+    ct.pp.pca(d, n_comps=4)
+    ct.pp.neighbors(d, n_neighbors=5)
+    y = pd.Series(np.arange(12.0), index=[f"s{i}" for i in range(12)])
+    return d, y
+
+
+def test_unported_paths_raise_not_implemented():
+    d, y = _demo()
+    for fmt in ("block", "hybrid", "banded"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ct.tl.set_graph_format(d, fmt)
+    with pytest.raises(ValueError, match="unknown graph format"):
+        ct.tl.set_graph_format(d, "csr")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ct.tl.association(d, y, "sample", mesh=object())
+    with pytest.raises(NotImplementedError, match="nam_savepoint"):
+        ct.tl.association(d, y, "sample", nam_savepoint="nam.npz")
+    with pytest.raises(NotImplementedError, match="IVF"):
+        ct.pp.neighbors(d, method="ivf")
+    sparse = ct.CellData(X=sp.random(50, 8, density=0.3, format="csr"))
+    with pytest.raises(NotImplementedError, match="sparse"):
+        ct.pp.pca(sparse)
+
+
+def test_ell_format_end_to_end():
+    d, y = _demo()
+    p_bucketed = ct.tl.association(d, y, "sample", Nnull=50, seed=1)
+    ct.tl.set_graph_format(d, "ell")
+    p_ell = ct.tl.association(d, y, "sample", Nnull=50, seed=1)
+    assert p_ell == p_bucketed  # same graph, same permutations
+
+
+def test_launch_counts_reset():
+    _build.count_launch("example")
+    assert _build.launch_counts()["example"] >= 1
+    ct.ops.reset_launch_counts()
+    assert ct.ops.launch_counts() == {}
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No silent fallback: without the CUDA toolkit the build raises."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("knn_exact")
+
+
+def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    res = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
