@@ -7,18 +7,28 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. card: name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the package, compiled by ``nvcc`` from
-   ``cna_tpu_torch/csrc`` into ``cna_tpu_torch/_build``;
+   ``cna_tpu_torch/csrc`` into ``cna_tpu_torch/_build`` (one ``nvcc`` per
+   source, started together);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shape and at extra shapes; timed with CUDA events
+   its main path's shape and at extra shapes; timed with CUDA events
    beside its bound and a PyTorch library yardstick;
-4. the slice: synthetic data (50 samples x 2,000 cells x 50 genes) ->
-   ``pp.pca`` -> ``pp.neighbors`` -> ``tl.association`` with 1,000
-   permutations, with the kernel launch counts set to 0 just before and
-   read just after;
-5. card vs CPU: the same chain at 5,000 cells on cuda in float32 and on
+4. the 100,000-cell path: synthetic data (50 samples x 2,000 cells x 50
+   genes) -> ``pp.pca`` -> ``pp.neighbors`` (the exact kNN kernel, the
+   device-resident graph) -> ``tl.association`` with 1,000 permutations;
+5. the 1,000,000-cell path: 50 samples x 20,000 cells x 50 genes ->
+   ``pp.pca`` (chunked) -> ``pp.neighbors`` (auto -> the IVF index and its
+   scoring kernel -> the device-resident graph) -> ``tl.association`` with
+   1,000 permutations; then the scoring kernel against its plain version
+   on that index's own layout and calibrated probe count;
+6. IVF against exact at 100,000 cells: the data of phase 4 through
+   ``method='ivf'``, held to phase 4's exact-graph result;
+7. card vs CPU: the same chain at 5,000 cells on cuda in float32 and on
    the CPU in float64, stage by stage (PCA scores, kNN lists up to
    near-ties, fuzzy graph weights, the NAM diffused from the card's own
    graph) and end to end (diffusion steps, k).
+
+Each path of phases 4 and 5 runs with the kernel launch counts set to 0
+just before it and read just after.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the ``{"ok": true, "device": ...}`` line.  Without a CUDA
@@ -46,6 +56,14 @@ PEAK_BYTES_PER_S = 3.35e12
 
 KNN_CASES = [(100_000, 20, 15), (1_037, 7, 5), (20_011, 50, 64)]
 DIST_ATOL = 1e-3  # float32 squared distances summed in different orders
+# the scoring kernel at the 1M-cell index is held to its plain version on
+# every IVF_SHARE-th slot (the plain version's direct-difference distance
+# tiles take minutes over all slots); the kernel alone is also timed over
+# all slots
+IVF_SHARE = 32
+IVF_MIN_RECALL = 0.9
+# IVF graph against the exact graph at 100,000 cells
+IVF_NCORR_MIN = 0.97
 # card (float32) vs CPU (float64) at 5,000 cells, each stage on the same
 # input: float32 PCA scores; kNN lists that differ only by near-ties (a
 # float32 distance is off by ~1e-6 relative); fuzzy weights from the same
@@ -155,25 +173,262 @@ def check_knn_case(n, d, k, seed, timed):
     return rec
 
 
-def main_path(ct):
-    """The slice at full size; returns (launch counts, record)."""
+def random_layout(f_pad, g, d, seed, n_dummy, min_count):
+    """A random fine-block layout on the card: (x4, counts, csum) with
+    ragged live counts and ``n_dummy`` trailing dummy (count-0) blocks."""
     import torch
 
-    from cna_tpu_torch.ops import launch_counts, reset_launch_counts
-    from cna_tpu_torch.utils import profiling
+    from cna_tpu_torch.ops import ivf
 
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x4 = torch.randn(f_pad, g, ivf.kernel_d_pad(d), generator=gen,
+                     device="cuda")
+    x4[:, :, d:] = 0.0
+    counts = torch.randint(min_count, g + 1, (f_pad,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    if n_dummy:
+        counts[-n_dummy:] = 0
+    csum = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    return x4, counts, csum
+
+
+def library_score(x4, sel, probes, counts, k, g, q_blocks, batch=8):
+    """The yardstick: blocked ``torch.bmm`` + ``torch.topk`` over the
+    gathered candidate blocks (never used by the package)."""
+    import torch
+
+    f_pad, _, d_pad = x4.shape
+    within = torch.arange(g, device=x4.device)
+    for lo in range(0, sel.shape[0], batch):
+        s = sel[lo:lo + batch].long()
+        nb = s.shape[0]
+        qblk = s[:, None] * q_blocks + torch.arange(q_blocks,
+                                                    device=x4.device)
+        q = x4[qblk].reshape(nb, q_blocks * g, d_pad)
+        ids = probes[lo:lo + nb].long()
+        cand = x4[ids].reshape(nb, -1, d_pad)
+        d2 = ((q * q).sum(-1)[:, :, None] + (cand * cand).sum(-1)[:, None, :]
+              - 2.0 * torch.bmm(q, cand.transpose(1, 2)))
+        live = (within[None, None, :] < counts[ids].long()[:, :, None])
+        d2 = torch.where(live.reshape(nb, 1, -1), d2, float("inf"))
+        torch.topk(d2, k, dim=2, largest=False)
+
+
+def check_ivf_case(label, x4, sel, probes, counts, csum, k, g, q_blocks,
+                   timed):
+    """The scoring kernel vs its plain version on one input; returns a
+    record (with times, bound and yardstick when ``timed``)."""
+    import torch
+
+    from cna_tpu_torch.ops import ivf
+
+    args = (x4, sel, probes, counts, csum, k)
+    negd, idx = ivf.score_blocks(*args, g=g, q_blocks=q_blocks)
+    torch.cuda.synchronize()
+    p_negd, p_idx = ivf.score_blocks_plain(*args, g=g, q_blocks=q_blocks)
+    torch.cuda.synchronize()
+    ns, mq, _ = negd.shape
+    f_pad, _, d_pad = x4.shape
+
+    qblk = (sel.long()[:, None] * q_blocks
+            + torch.arange(q_blocks, device="cuda"))  # (ns, q_blocks)
+    within = torch.arange(g, device="cuda")
+    live = (within[None, None, :]
+            < counts[qblk].long()[:, :, None]).reshape(ns, mq)
+    found, p_found = torch.isfinite(negd), torch.isfinite(p_negd)
+    if not bool((found == p_found).all()):
+        raise AssertionError(f"ivf_score {label}: the kernel and the plain "
+                             "version disagree on which entries exist")
+    if bool(found[~live].any()) or bool((idx[~found] != 0).any()):
+        raise AssertionError(f"ivf_score {label}: a dead row or a missing "
+                             "entry is not (-inf, id 0)")
+    dk = torch.where(found, -negd, 0.0)
+    dp = torch.where(found, -p_negd, 0.0)
+    asc = torch.where(found, -negd, float("inf"))  # missing entries last
+    if not bool((asc[..., 1:] >= asc[..., :-1]).all()):
+        raise AssertionError(f"ivf_score {label}: distances not ascending")
+    # within 1e-3, absolute and relative
+    err = float(((dk - dp).abs() / torch.clamp(dp, min=1.0)).max())
+    abs_err = float((dk - dp).abs().max())
+    if err > DIST_ATOL:
+        raise AssertionError(f"ivf_score {label}: sorted distances differ "
+                             f"from the plain version by {err}")
+    # the ids must carry the distances reported for them: compact id ->
+    # layout row, then the distance recomputed from the layout
+    total = int(counts.sum())
+    blk_of = torch.repeat_interleave(
+        torch.arange(f_pad, device="cuda"), counts.long())
+    layout_of = blk_of * g + (torch.arange(total, device="cuda")
+                              - csum.long()[blk_of])
+    flat = x4.reshape(-1, d_pad)
+    q = x4[qblk].reshape(ns, mq, d_pad)
+    id_err = 0.0
+    for lo in range(0, ns, 256):  # bound the (slots, rows, k, d) gather
+        nbr = flat[layout_of[idx[lo:lo + 256].long()]]
+        rec_d = ((nbr - q[lo:lo + 256, :, None, :]) ** 2).sum(-1)
+        e = (torch.where(found[lo:lo + 256], rec_d - dk[lo:lo + 256], 0.0)
+             .abs() / torch.clamp(dp[lo:lo + 256], min=1.0))
+        id_err = max(id_err, float(e.max()))
+    if id_err > DIST_ATOL:
+        raise AssertionError(f"ivf_score {label}: ids disagree with their "
+                             f"distances by {id_err}")
+    # recall with ties allowed, as for knn_exact
+    same = (idx.long()[..., :, None] == p_idx.long()[..., None, :]).any(-1)
+    kth = torch.where(p_found, -p_negd, float("-inf")).amax(-1, keepdim=True)
+    tie = dk >= kth - DIST_ATOL * torch.clamp(kth, min=1.0)
+    ok = same | tie | ~found
+    recall = float(ok.float().mean())
+    if recall != 1.0:
+        raise AssertionError(f"ivf_score {label}: recall {recall}")
+
+    rec = dict(label=label, slots=ns, f_pad=f_pad, g=g, d_pad=d_pad,
+               q_blocks=q_blocks, probes=int(probes.shape[1]), k=k,
+               live_rows=int(live.sum()), max_abs_err=abs_err,
+               max_rel_err=err, recall=recall,
+               same_id_share=float((same | ~found).float().mean()))
+    if timed:
+        rec["ms"] = cuda_ms(
+            lambda: ivf.score_blocks(*args, g=g, q_blocks=q_blocks), 3)
+        rec["plain_ms"] = cuda_ms(
+            lambda: ivf.score_blocks_plain(*args, g=g, q_blocks=q_blocks), 1)
+        rec["library_ms"] = cuda_ms(
+            lambda: library_score(x4, sel, probes, counts, k, g, q_blocks), 2)
+        rec.update(ivf_bound(x4, sel, probes, counts, k, g, q_blocks))
+    return rec
+
+
+def ivf_bound(x4, sel, probes, counts, k, g, q_blocks):
+    """The least time the card could take for this input: the operations
+    its live rows and live candidates need (2 * rows * candidates * d flop
+    in float32) against its bytes (every input read once, every output
+    written once)."""
+    import torch
+
+    f_pad, _, d_pad = x4.shape
+    ns = sel.shape[0]
+    d = int((x4 != 0).any(dim=0).any(dim=0).sum())
+    qblk = (sel.long()[:, None] * q_blocks
+            + torch.arange(q_blocks, device=x4.device))
+    rows = counts[qblk].long().sum(dim=1)  # live query rows per slot
+    cands = counts[probes.long()].long().sum(dim=1)  # live candidates
+    flops = 2.0 * float((rows * cands).sum()) * d
+    nbytes = (4.0 * x4.numel() + 4.0 * (sel.numel() + probes.numel()
+                                        + 2 * counts.numel())
+              + 8.0 * ns * q_blocks * g * k)
+    probed_bytes = 4.0 * d_pad * float(cands.sum()) * q_blocks
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                probed_block_bytes_ms=1e3 * probed_bytes / PEAK_BYTES_PER_S)
+
+
+def ivf_odd_cases():
+    """Two shapes off the main path: (a) g=64 with four query blocks to a
+    slot, every slot scored; (b) ragged counts with dummy blocks, a probe
+    list whose middle 16 entries are all dummies, and k=64."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    recs = []
+    x4, counts, csum = random_layout(64, 64, 12, seed=3, n_dummy=4,
+                                     min_count=20)
+    sel = torch.arange(16, device="cuda", dtype=torch.int32)
+    probes = torch.stack([torch.randperm(64, generator=gen, device="cuda")[:32]
+                          for _ in range(16)]).to(torch.int32)
+    recs.append(check_ivf_case("g=64 q_blocks=4", x4, sel, probes, counts,
+                               csum, 10, 64, 4, timed=False))
+    x4, counts, csum = random_layout(96, 128, 20, seed=4, n_dummy=24,
+                                     min_count=1)
+    sel = torch.tensor([0, 5, 17, 40, 71, 95, 80], device="cuda",
+                       dtype=torch.int32)  # 95 and 80 are dummy slots
+    probes = torch.stack([torch.randperm(72, generator=gen, device="cuda")[:48]
+                          for _ in range(len(sel))]).to(torch.int32)
+    probes[:, 16:32] = torch.randint(72, 96, (len(sel), 16), generator=gen,
+                                     device="cuda", dtype=torch.int32)
+    recs.append(check_ivf_case("ragged, dummy step, k=64", x4, sel, probes,
+                               counts, csum, 64, 128, 1, timed=False))
+    return recs
+
+
+def check_ivf_main_shape(scores_dev, u, k):
+    """The scoring kernel on the 1M-cell path's own index (rebuilt from
+    the same PCA scores and seed, so the same layout) at the calibrated
+    probe count: against the plain version on every IVF_SHARE-th slot,
+    and timed alone over all slots."""
+    import torch
+
+    from cna_tpu_torch.ops import ivf
+    from cna_tpu_torch.pp import ivf_fine
+
+    n, d = scores_dev.shape
+    index = ivf_fine.build_fine_index(scores_dev.to(torch.float32), n, d,
+                                      seed=0)
+    table = ivf_fine._rank_blocks_centroid(index.cents, u)
+    sel_all = torch.arange(index.n_slots, device="cuda", dtype=torch.int32)
+    sel = sel_all[::IVF_SHARE].contiguous()
+    rec = check_ivf_case(
+        f"1M-cell index, every {IVF_SHARE}th slot", index.x4, sel,
+        table[sel.long()].contiguous(), index.blk_counts_dev,
+        index.blk_csum_dev, k, index.g, index.q_blocks, timed=True)
+    args = (index.x4, sel_all, table, index.blk_counts_dev,
+            index.blk_csum_dev, k)
+    rec["all_slots"] = dict(
+        slots=int(sel_all.shape[0]), f_real=index.f_real,
+        ms=cuda_ms(lambda: ivf.score_blocks(*args, g=index.g,
+                                            q_blocks=index.q_blocks), 3),
+        **ivf_bound(index.x4, sel_all, table, index.blk_counts_dev, k,
+                    index.g, index.q_blocks))
+    return rec
+
+
+def main_path(ct):
+    """The 100,000-cell path at full size; returns (launch counts,
+    record, the association result)."""
+    d, y = dataset(ct, cells_per_sample=2000)
+    counts, rec, res = drive_path(ct, d, y, method="auto")
+    if rec["knn_method_resolved"] != "pallas":
+        raise AssertionError("pp.neighbors resolved kNN to "
+                             f"{rec['knn_method_resolved']!r}, not the "
+                             "exact kernel")
+    if counts.get("knn_exact", 0) < 1:
+        raise AssertionError(f"the main path launched no knn_exact: {counts}")
+    conn = d.obsp["connectivities"].tocsr()
+    if conn.shape != (d.n_obs, d.n_obs) or abs(conn - conn.T).max() != 0:
+        raise AssertionError("connectivities are not a symmetric N x N CSR")
+    return counts, rec, res
+
+
+def dataset(ct, cells_per_sample):
+    """Synthetic data of 50 samples x ``cells_per_sample`` cells x 50
+    genes (seed 0) and the case/control phenotype."""
     ct.config.set_device("cuda")
     ct.config.enable_x64(False)
     d, samplem = ct.data.synthetic_dataset(
-        n_samples=50, cells_per_sample=2000, n_genes=50, seed=0)
-    y = samplem["case"].astype(float)
+        n_samples=50, cells_per_sample=cells_per_sample, n_genes=50, seed=0)
+    return d, samplem["case"].astype(float)
+
+
+def drive_path(ct, d, y, method):
+    """``pp.pca`` -> ``pp.neighbors`` -> ``tl.association`` (twice) on the
+    card through the public entry points, with the launch counts set to 0
+    just before and read just after the first pass.  Checks what every
+    path must give; returns (launch counts, record, first result)."""
+    import torch
+
+    from cna_tpu_torch.graph.device import DeviceConnectivities
+    from cna_tpu_torch.ops import launch_counts, reset_launch_counts
+    from cna_tpu_torch.utils import profiling
+
     prof = profiling.enable_profiling()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     reset_launch_counts()
     t0 = time.perf_counter()
     ct.pp.pca(d, n_comps=20)
-    ct.pp.neighbors(d, n_neighbors=15)
+    ct.pp.neighbors(d, n_neighbors=15, method=method)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     res = ct.tl.association(d, y, "id", Nnull=1000, seed=0,
@@ -189,12 +444,6 @@ def main_path(ct):
     t3 = time.perf_counter()
     phases = [(p["phase"], round(p["seconds"], 4)) for p in prof.phases]
 
-    resolved = d.uns["neighbors"]["params"]["knn_method_resolved"]
-    if resolved != "pallas":
-        raise AssertionError(f"pp.neighbors resolved kNN to {resolved!r}, "
-                             "not the exact kernel")
-    if counts.get("knn_exact", 0) < 1:
-        raise AssertionError(f"the main path launched no knn_exact: {counts}")
     if not np.isfinite(res.p) or not 0 < res.p <= 1:
         raise AssertionError(f"association p = {res.p}")
     if res2.p != res.p or res2.k != res.k:
@@ -210,16 +459,68 @@ def main_path(ct):
     if not ((fdr >= 0) & (fdr <= 1)).all():
         raise AssertionError("obs['coef_fdr'] outside [0, 1]")
     conn = d.obsp["connectivities"]
-    if conn.shape != (d.n_obs, d.n_obs) or abs(conn - conn.T).max() != 0:
-        raise AssertionError("connectivities are not a symmetric N x N CSR")
+    if not isinstance(conn, DeviceConnectivities) \
+            or conn.shape != (d.n_obs, d.n_obs):
+        raise AssertionError("obsp['connectivities'] is not a device-"
+                             f"resident N x N graph: {conn!r}")
 
-    rec = dict(cells=d.n_obs, knn_method_resolved=resolved, p=res.p,
-               k=res.k, kept=int(kept.sum()),
+    rec = dict(cells=d.n_obs,
+               knn_method_resolved=d.uns["neighbors"]["params"][
+                   "knn_method_resolved"],
+               graph=repr(conn), p=res.p, k=res.k, kept=int(kept.sum()),
                graph_s=t1 - t0, association_first_s=t2 - t1,
                association_second_s=t3 - t2, phases_first=phases[:n_first],
                phases_second_association=phases[n_first:],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return counts, rec
+    return counts, rec, res
+
+
+def atlas_path(ct):
+    """The 1,000,000-cell path at full size, nothing cut; returns (launch
+    counts, record, the PCA scores on the card, the calibrated u)."""
+    import warnings
+
+    from cna_tpu_torch.pp.pca import device_rep
+
+    t0 = time.perf_counter()
+    d, y = dataset(ct, cells_per_sample=20_000)
+    make_s = time.perf_counter() - t0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        counts, rec, _ = drive_path(ct, d, y, method="auto")
+    recall_warnings = [str(w.message) for w in caught
+                       if "pp.ivf" in str(w.message)]
+    rec["make_data_s"] = make_s
+    info = d.uns["neighbors"].get("ivf")
+    rec["ivf"] = info
+    if rec["knn_method_resolved"] != "ivf" or info is None:
+        raise AssertionError("pp.neighbors resolved kNN to "
+                             f"{rec['knn_method_resolved']!r}, not the IVF "
+                             "index")
+    if counts.get("ivf_score", 0) < 1:
+        raise AssertionError(f"the 1M path launched no ivf_score: {counts}")
+    if recall_warnings or not info["verify_recall"] >= IVF_MIN_RECALL:
+        raise AssertionError(f"IVF recall below {IVF_MIN_RECALL}: {info}; "
+                             f"{recall_warnings}")
+    scores_dev = device_rep(d, d.obsm["X_pca"])
+    return counts, rec, scores_dev, int(info["u"])
+
+
+def ivf_vs_exact(ct, exact_res):
+    """The 100,000-cell data through ``method='ivf'`` on the card, held to
+    the exact-graph result of the same data."""
+    d, y = dataset(ct, cells_per_sample=2000)
+    counts, rec, res = drive_path(ct, d, y, method="ivf")
+    if counts.get("ivf_score", 0) < 1:
+        raise AssertionError(f"method='ivf' launched no ivf_score: {counts}")
+    r = float(np.corrcoef(np.asarray(exact_res.ncorrs),
+                          np.asarray(res.ncorrs))[0, 1])
+    out = dict(ncorrs_corr=r, p_exact=exact_res.p, p_ivf=res.p,
+               k=(exact_res.k, res.k), ivf=d.uns["neighbors"]["ivf"],
+               graph_s=rec["graph_s"], launches=counts)
+    if r <= IVF_NCORR_MIN or (exact_res.p < 0.05) != (res.p < 0.05):
+        raise AssertionError(f"IVF and exact graphs disagree: {out}")
+    return out
 
 
 def knn_lists(d):
@@ -256,7 +557,8 @@ def card_vs_cpu(ct, card="cuda"):
         else:
             d.obsm["X_pca"] = scores
         ct.pp.neighbors(d, n_neighbors=15)
-        knn, own_conn = knn_lists(d), d.obsp["connectivities"]
+        # the card stores a device-resident graph; compare CSR matrices
+        knn, own_conn = knn_lists(d), d.obsp["connectivities"].tocsr()
         if conn is not None:
             d.obsp["connectivities"] = conn
         y = samplem["case"].astype(float)
@@ -361,7 +663,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         import cna_tpu_torch as ct
-        from cna_tpu_torch.ops import _build, knn
+        from cna_tpu_torch.ops import _build, ivf, knn
     except ImportError as exc:
         print(f"chip_smoke: cna_tpu_torch not found beside this script "
               f"({exc})", file=sys.stderr)
@@ -373,21 +675,36 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    build_s = _build.build(knn.KERNEL)
-    log(f"build: {knn.KERNEL} nvcc {build_s:.2f} s, "
+    build_s = _build.build_all()
+    log(f"build: nvcc seconds {json.dumps(build_s)}, started together, "
         f"{time.perf_counter() - t0:.2f} s in all")
-    for line in _build.build_log(knn.KERNEL).splitlines():
-        if "registers" in line or "stack frame" in line:
-            log("  ptxas:", line.strip())
+    for name in _build.KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "stack frame" in line:
+                log(f"  ptxas {name}:", line.strip())
 
     cases = [check_knn_case(n, d, k, seed=i, timed=(i == 0))
              for i, (n, d, k) in enumerate(KNN_CASES)]
     for rec in cases:
         log("knn_exact vs plain:", json.dumps(rec))
+    ivf_cases = ivf_odd_cases()
+    for rec in ivf_cases:
+        log("ivf_score vs plain:", json.dumps(rec))
 
-    counts, slice_rec = main_path(ct)
-    log("slice:", json.dumps(slice_rec))
-    log("main-path launches:", json.dumps(counts))
+    counts, slice_rec, exact_res = main_path(ct)
+    log("100k path:", json.dumps(slice_rec))
+    log("100k-path launches:", json.dumps(counts))
+
+    atlas_counts, atlas_rec, scores_dev, u = atlas_path(ct)
+    log("1M path:", json.dumps(atlas_rec))
+    log("1M-path launches:", json.dumps(atlas_counts))
+    ivf_main = check_ivf_main_shape(scores_dev, u, 15)
+    del scores_dev
+    torch.cuda.empty_cache()
+    log("ivf_score vs plain:", json.dumps(ivf_main))
+    ivf_cases.append(ivf_main)
+
+    log("ivf vs exact at 100k:", json.dumps(ivf_vs_exact(ct, exact_res)))
 
     cmp_rec = card_vs_cpu(ct)
     log("card vs cpu:", json.dumps(cmp_rec))
@@ -407,6 +724,27 @@ def main() -> int:
         "library_ms": main_case["library_ms"],
         "recall": min(c["recall"] for c in cases),
         "shape": [main_case["n"], main_case["d"], main_case["k"]],
+    }, {
+        # times, bound and yardstick on every IVF_SHARE-th slot of the 1M
+        # index (what the plain version is run on); "all_slots" holds the
+        # kernel's time and bound over the whole search, one launch
+        "name": ivf.KERNEL,
+        "route": "cuda",
+        "source": "cna_tpu_torch/csrc/ivf_score.cu",
+        "replaces": "cna_tpu/ops/ivf_pallas.py:71",
+        "launches": atlas_counts.get(ivf.KERNEL, 0),
+        "max_abs_err": max(c["max_abs_err"] for c in ivf_cases),
+        "ms": ivf_main["ms"],
+        "plain_ms": ivf_main["plain_ms"],
+        "bound_ms": ivf_main["bound_ms"],
+        "bound_by": ivf_main["bound_by"],
+        "library_ms": ivf_main["library_ms"],
+        "recall": min(c["recall"] for c in ivf_cases),
+        "shape": {key: ivf_main[key] for key in
+                  ("slots", "f_pad", "g", "d_pad", "q_blocks", "probes",
+                   "k")},
+        "slot_share": f"1/{IVF_SHARE}",
+        "all_slots": ivf_main["all_slots"],
     }]
     if smi:
         log(smi)

@@ -28,6 +28,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+# every kernel source of the package (csrc/<name>.cu)
+KERNELS = ("knn_exact", "ivf_score")
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LAUNCHES: dict[str, int] = {}
 
@@ -94,6 +97,16 @@ def build(name: str) -> float:
                            f"{res.returncode}\n{res.stdout}")
     os.replace(tmp, out)
     return time.perf_counter() - t0
+
+
+def build_all(names=KERNELS) -> dict:
+    """Compile several kernels at once, one ``nvcc`` process per source,
+    all started together; returns ``{name: seconds}``.  Raises the first
+    build error."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -2,8 +2,10 @@
 
 The reference's compiled hot path is one line of scipy CSR matvec
 (``_nam.py:33``: ``a.dot(s/colsums) + self_weight*s/colsums``).  Here the
-graph lives in hybrid ELL + COO-overflow form (``graph.ell``) or in
-degree-sorted ELL buckets (``graph.buckets``): the bulk of edges sit in
+graph lives in hybrid ELL + COO-overflow form (``graph.ell``), in
+degree-sorted ELL buckets (``graph.buckets``) or, built on the device, as
+a direct ELL plus in-degree-bucketed mirror columns (``graph.device``):
+the bulk of edges sit in
 padded neighbour lists, so SpMM is a row gather plus a small contraction;
 hub-row overflow edges are applied with ``index_add_``, which on CUDA
 uses atomics, so the COO tail is not bit-repeatable from run to run.
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..graph.buckets import BucketEllGraph
+from ..graph.device import SortedExtGraph
 from ..graph.ell import EllGraph
 
 
@@ -84,8 +87,13 @@ def bucket_spmm(graph: BucketEllGraph, x):
     own width, so the gathered slots are ~nnz instead of N*K_p98
     (scatter-free: hub rows live in a small wide bucket).
     """
+    return _bucket_outputs(graph.indices, graph.weights, x)
+
+
+def _bucket_outputs(indices, weights, x):
+    """Per-bucket gather+einsum outputs, concatenated in bucket order."""
     outs = []
-    for idx, w in zip(graph.indices, graph.weights):
+    for idx, w in zip(indices, weights):
         nb, kb = idx.shape
         if kb == 0 or nb == 0:
             outs.append(x.new_zeros((nb, x.shape[1])))
@@ -93,6 +101,24 @@ def bucket_spmm(graph: BucketEllGraph, x):
             outs.append(ell_spmm(idx, w, x,
                                  block_rows=_auto_block(nb, kb, x.shape[1])))
     return torch.cat(outs, dim=0)
+
+
+def sorted_ext_spmm(graph: SortedExtGraph, x):
+    """SpMM of a ``graph.device.SortedExtGraph``: uniform direct ELL +
+    in-degree-bucketed mirror columns + a small COO spill.
+
+    The bucket outputs are produced in mirror-degree-sorted row order and
+    restored to compact order with one (N, S) row gather; the only scatter
+    is the spill, capped at about 1e-4 of the mirror edges at build time.
+    """
+    y = ell_spmm(graph.direct_indices, graph.direct_weights, x,
+                 block_rows=_auto_block(*graph.direct_indices.shape,
+                                        x.shape[1]))
+    if graph.ext_indices:
+        y = y + _bucket_outputs(graph.ext_indices, graph.ext_weights,
+                                x)[graph.inv_pi.long()]
+    return coo_spmm_add(y, graph.overflow_rows, graph.overflow_cols,
+                        graph.overflow_weights, x)
 
 
 def diffusion_step(s, graph, colsums, self_weight, block_rows=None):
@@ -103,6 +129,8 @@ def diffusion_step(s, graph, colsums, self_weight, block_rows=None):
     ``s' = a @ (s/colsums) + self_weight * s/colsums``.
     """
     t = s / colsums[:, None]
+    if isinstance(graph, SortedExtGraph):
+        return sorted_ext_spmm(graph, t) + self_weight * t
     if isinstance(graph, BucketEllGraph):
         return bucket_spmm(graph, t) + self_weight * t
     if isinstance(graph, EllGraph):

@@ -12,10 +12,12 @@ definitions):
 2. directed membership strengths ``exp(-(d_ij - rho_i)+ / sigma_i)``;
 3. probabilistic-union symmetrization ``A + A^T - A o A^T``.
 
-The math runs on the device; the host assembles the scipy CSR matrices
-(the TPU package's host-CSR branch, ``pp/neighbors.py:396-430``).  The
-device-resident graph branch waits for a later slice (ROADMAP.md queue 1
-item 1).
+The math runs on the device.  ``neighbors`` then takes one of the TPU
+package's two branches (``pp/neighbors.py:393-430``): on the IVF path
+(any device) and whenever the representation is on ``cuda``, the graph is
+packed on the device (``graph.device.build_sym_ell``) and ``obsp`` holds
+lazy faces; for the exact methods on the CPU the host assembles scipy CSR
+matrices.
 """
 
 from __future__ import annotations
@@ -26,8 +28,12 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..graph.device import (DeviceConnectivities, LazyDistances,
+                            build_sym_ell)
+from ..graph.reorder import Reordering
 from ..utils.profiling import global_profiler
 from ..utils.transfer import as_tensor, fetch
+from .ivf import ivf_knn_device
 from .knn import knn_device, resolve_method
 
 _SMOOTH_K_TOLERANCE = 1e-5
@@ -167,15 +173,80 @@ def fuzzy_connectivities(indices, dists):
     return result
 
 
+def _neighbors_device(data, rep, n_neighbors, method, resolved):
+    """Graph build with no (N, k)-sized host transfer.
+
+    kNN lists stay on the device (the IVF fine index in compact layout
+    order, or the exact searches in identity order); the fuzzy union and
+    the symmetric-ELL pack (``graph.device.build_sym_ell``) consume them
+    in place.  What lands in ``obsp`` are lazy faces that materialize
+    scipy matrices only if something asks for them; ``tl.association``
+    never does (it takes the packed graph and the reordering straight from
+    ``DeviceConnectivities``).
+    """
+    prof = global_profiler()
+    n = data.n_obs
+    with prof.phase("knn", cells=n):
+        if resolved == "ivf":
+            res = ivf_knn_device(rep, n_neighbors)
+            idx_dev, d_dev, order = res.indices, res.dists, res.order
+        else:
+            idx_dev, d_dev = knn_device(rep, n_neighbors, resolved)
+            order = np.arange(n, dtype=np.int32)
+    with prof.phase("fuzzy_graph", cells=n):
+        rho, sigma = smooth_knn_dist(d_dev, math.log2(n_neighbors))
+        w = membership_strengths(d_dev, rho, sigma, idx_dev)
+        w_sym, code = fuzzy_union_device(idx_dev, w)
+        ell = build_sym_ell(idx_dev, w_sym, code)
+        if resolved == "ivf":
+            inv = np.empty(n, dtype=order.dtype)
+            inv[order] = np.arange(n, dtype=order.dtype)
+            ordering = Reordering(perm=order, inv=inv)
+        else:
+            ordering = None  # identity: skip the permutation machinery
+        conn = DeviceConnectivities(ell, ordering, n)
+
+    data.obsp["connectivities"] = conn
+    data.obsp["distances"] = LazyDistances(idx_dev, d_dev, order)
+    data.uns["neighbors"] = _neighbors_meta(n_neighbors, method, resolved)
+    if resolved == "ivf":
+        # recall provenance: the operating point is a chosen spot on a
+        # measured recall-vs-probes curve
+        data.uns["neighbors"]["ivf"] = {
+            "u": res.u,
+            "coverage": res.u * res.index.g / max(n, 1),
+            "verify_recall": res.recall,
+            "pilot_curve": list(res.history),
+        }
+    return conn
+
+
+def _neighbors_meta(n_neighbors, method, resolved):
+    return {
+        "connectivities_key": "connectivities",
+        "distances_key": "distances",
+        "params": {"n_neighbors": n_neighbors, "method": "umap",
+                   "knn_method": method,
+                   "knn_method_resolved": resolved,
+                   "metric": "euclidean"},
+    }
+
+
 def neighbors(data, n_neighbors=15, n_pcs=None, use_rep=None, key_added=None,
               method="auto"):
     """Build the cell-cell graph: kNN + fuzzy connectivities.
 
     Drop-in for the role ``sc.pp.neighbors`` plays upstream of the
-    reference: writes ``obsp['distances']`` (directed kNN distances, scipy
-    CSR), ``obsp['connectivities']`` (symmetric fuzzy weights, scipy CSR,
-    what ``tl`` diffusion consumes), and ``uns['neighbors']`` metadata
-    (including ``knn_method_resolved``).
+    reference: writes ``obsp['distances']`` (directed kNN distances),
+    ``obsp['connectivities']`` (symmetric fuzzy weights, what ``tl``
+    diffusion consumes), and ``uns['neighbors']`` metadata (including
+    ``knn_method_resolved`` and, on the IVF path, the measured operating
+    point under ``'ivf'``).  On ``cuda``, and on the IVF path
+    (``method='ivf'``, or 'auto' above 262,144 cells) on any device, both
+    obsp entries are device-resident lazy objects: scipy matrices
+    materialize on demand (``.tocsr()``), and ``tl`` consumes the device
+    graph directly.  The exact methods on the CPU store scipy CSR
+    matrices.
 
     Representation: ``obsm[use_rep]`` if given, else ``obsm['X_pca']``
     (computed on the fly from ``data.X`` when absent), truncated to
@@ -195,6 +266,9 @@ def neighbors(data, n_neighbors=15, n_pcs=None, use_rep=None, key_added=None,
         rep = rep[:, :n_pcs]
 
     resolved = resolve_method(data.n_obs, method, rep.device)
+    if resolved == "ivf" or rep.device.type == "cuda":
+        return _neighbors_device(data, rep, n_neighbors, method, resolved)
+
     prof = global_profiler()
     with prof.phase("knn", cells=data.n_obs):
         idx_dev, d_dev = knn_device(rep, n_neighbors, resolved)
@@ -217,12 +291,5 @@ def neighbors(data, n_neighbors=15, n_pcs=None, use_rep=None, key_added=None,
 
     data.obsp["distances"] = dist_mat
     data.obsp["connectivities"] = conn
-    data.uns["neighbors"] = {
-        "connectivities_key": "connectivities",
-        "distances_key": "distances",
-        "params": {"n_neighbors": n_neighbors, "method": "umap",
-                   "knn_method": method,
-                   "knn_method_resolved": resolved,
-                   "metric": "euclidean"},
-    }
+    data.uns["neighbors"] = _neighbors_meta(n_neighbors, method, resolved)
     return conn

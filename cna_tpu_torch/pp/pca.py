@@ -1,4 +1,4 @@
-"""PCA on the device, dense in-memory path.
+"""PCA on the device, for a dense ``X``.
 
 Centered (not scaled) principal components via an eigendecomposition of
 the gene-gene covariance: the Gram trick on the small axis, since
@@ -7,9 +7,10 @@ n_genes << n_cells in the target workloads.  The two FLOP-heavy stages
 device; the (G, G) eigendecomposition runs on the host in numpy, as in
 the TPU package (``pp/pca.py:41-52``).
 
-Not ported yet (ROADMAP.md queue 1 item 4): sparse ``X`` and the
-chunked path the TPU package takes at ``n * g >= 16M`` elements; both
-raise NotImplementedError.
+At ``n * g >= 16M`` elements ``X`` goes to the device in row chunks
+(``_pca_dense_streamed``, the TPU package's ``pp/pca.py:123-159``).  Not
+ported yet (ROADMAP.md queue 1 item 4): a sparse ``X``, which raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -50,6 +51,47 @@ def _pca_device(x, n_comps):
     return scores_dev, evals[:n_comps], evecs[:, :n_comps], float(cov.trace())
 
 
+def _pca_dense_streamed(x_host, n_comps, chunk_rows=131_072):
+    """Dense PCA with chunked host-to-device copies.
+
+    The same two-stage centered-gram mathematics as the TPU package's:
+    accumulate the uncentered gram ``X^T X`` and the column sums over row
+    chunks on the device, center on the host
+    (``cov = (X'X - n mu mu') / (n - 1)``), eigh the (G, G) covariance on
+    the host in float64, then project the chunks.  The chunk copies are
+    asynchronous, so the matmuls of chunk i overlap the copy of chunk
+    i+1; the chunks stay on the device for the projection.
+
+    Returns (scores_dev (N, n_comps), evals, evecs, total_var).
+    """
+    from .. import config
+
+    dev, dtype = config.device(), config.default_float()
+    n, g = x_host.shape
+    chunks = [
+        torch.as_tensor(np.ascontiguousarray(x_host[lo:lo + chunk_rows]))
+        .to(device=dev, dtype=dtype, non_blocking=True)
+        for lo in range(0, n, chunk_rows)
+    ]
+    gram = torch.zeros((g, g), dtype=torch.float64, device=dev)
+    colsum = torch.zeros((g,), dtype=torch.float64, device=dev)
+    for blk in chunks:
+        gram += blk.T @ blk
+        colsum += blk.sum(dim=0)
+    gram = fetch(gram)
+    mean = fetch(colsum) / n
+    cov = (gram - n * np.outer(mean, mean)) / (n - 1)
+    evals, evecs = np.linalg.eigh(cov)
+    evals = evals[::-1]
+    evecs = evecs[:, ::-1]
+    comps = np.ascontiguousarray(evecs[:, :n_comps])
+    comps_dev = torch.as_tensor(comps, dtype=dtype, device=dev)
+    shift = torch.as_tensor(mean @ comps, dtype=dtype, device=dev)
+    scores_dev = torch.cat([blk @ comps_dev - shift[None, :]
+                            for blk in chunks])
+    return scores_dev, evals[:n_comps], comps, float(cov.trace())
+
+
 def pca_array(x, n_comps=50):
     """Return (scores (N, n_comps), explained variance, components) as
     tensors on the configured device."""
@@ -78,15 +120,15 @@ def pca(data, n_comps=50, key_added="X_pca"):
             "PCA of a sparse X is not ported yet (ROADMAP.md queue 1 item "
             "4); densify X first if it fits in memory")
     n, g = data.X.shape
-    if n * g >= _STREAM_MIN_ELEMS:
-        raise NotImplementedError(
-            f"PCA of a dense {n} x {g} X (>= {_STREAM_MIN_ELEMS} elements) "
-            "takes the chunked path, which is not ported yet (ROADMAP.md "
-            "queue 1 item 4)")
     n_comps = min(n_comps, g, n)
     with global_profiler().phase("pca_compute", cells=int(n)):
-        x = as_tensor(data.X)
-        scores_dev, variance, components, total_var = _pca_device(x, n_comps)
+        if n * g >= _STREAM_MIN_ELEMS:
+            scores_dev, variance, components, total_var = \
+                _pca_dense_streamed(np.asarray(data.X), n_comps)
+        else:
+            x = as_tensor(data.X)
+            scores_dev, variance, components, total_var = _pca_device(
+                x, n_comps)
         scores = fetch(scores_dev)
     data.obsm[key_added] = scores
     data.uns[_PCA_DEV_KEY] = (scores, scores_dev, _rep_fingerprint(scores))

@@ -17,8 +17,10 @@ diagnostic trails (kurtosis, R²) stay in device buffers and are printed
 afterwards.  Only shape-changing decisions (QC column drops) sync a
 small mask to the host.
 
-Graph formats: 'bucketed' (the default) and 'ell'.  'block', 'hybrid'
-and 'banded', the ``mesh=`` paths and NAM savepoints are not ported yet
+Graph formats: 'bucketed' (the default) and 'ell'; a device-resident
+graph (``graph.device.DeviceConnectivities``, what ``pp.neighbors`` stores
+on cuda and on the IVF path) serves both as it is.  'block', 'hybrid' and
+'banded', the ``mesh=`` paths and NAM savepoints are not ported yet
 (ROADMAP.md queue 1).
 """
 
@@ -31,6 +33,7 @@ import pandas as pd
 import torch
 
 from ..core.results import Result
+from ..graph.device import DeviceConnectivities
 from ..graph.ell import EllGraph, from_scipy
 from ..ops import linalg, moments, spmm
 from ..utils.transfer import as_tensor, fetch, to_device
@@ -96,6 +99,8 @@ def get_device_graph(data, fmt=None):
     Returns (graph, reordering): None for 'ell'; for 'bucketed' the
     degree ``Reordering`` whose permuted axes the buckets are built on
     (callers permute the diffusion state in and out once per pipeline).
+    A ``DeviceConnectivities`` is packed already and returns its own graph
+    and cell ordering (the IVF compact order, or None) for either format.
     """
     conn = get_connectivity(data)
     if isinstance(conn, EllGraph):
@@ -105,6 +110,10 @@ def get_device_graph(data, fmt=None):
         fmt = uns.get(_FORMAT_KEY, "ell") if uns is not None else "ell"
     if fmt in _LATER_FORMATS:
         raise _not_ported(f"graph format {fmt!r}", 3)
+    if isinstance(conn, DeviceConnectivities):
+        # packed on the device already; 'bucketed' is satisfied by the
+        # device graph too (its mirror columns are width-fitted)
+        return conn.ell, conn.ordering
     cache_key = f"{_ELL_CACHE_KEY}:{fmt}"
     if uns is not None:
         cached = uns.get(cache_key)
@@ -209,16 +218,24 @@ def diffuse_stepwise(data, s, maxnsteps=15, show_progress=False, self_weight=1):
         labels = (s.index, s.columns)
         s = s.to_numpy()
     s = to_device(s, graph.device, graph.dtype)
+    # a device graph may live in a permuted (compact) cell order: step in
+    # that order, yield every step in the caller's order
+    inv = None
+    if ordering is not None:
+        inv = torch.as_tensor(ordering.inv, device=s.device).long()
+        s = s[torch.as_tensor(ordering.perm, device=s.device).long()]
     colsums = graph.colsums(self_weight)
     block_rows = _auto_block_rows(graph.n_cells, graph.max_degree, s.shape[1])
     for i in range(maxnsteps):
         out("\ttaking step", i + 1)
         s = spmm.diffusion_step(s, graph, colsums, self_weight,
                                 block_rows=block_rows)
+        s_out = s if inv is None else s[inv]
         if labels is not None:
-            yield pd.DataFrame(fetch(s), index=labels[0], columns=labels[1])
+            yield pd.DataFrame(fetch(s_out), index=labels[0],
+                               columns=labels[1])
         else:
-            yield s
+            yield s_out
 
 
 def diffuse(data, s, nsteps, show_progress=False, self_weight=1):
@@ -312,12 +329,14 @@ def _nam(data, sid_name, sids=None, nsteps=None, maxnsteps=15, self_weight=1,
             # padding rows get code -1: an all-zero one-hot row
             codes = np.pad(codes, (0, n_pad - codes.shape[0]),
                            constant_values=-1)
-        block_rows = None
         n_true = n_cells
     else:
-        block_rows = _auto_block_rows(graph.n_cells, graph.max_degree,
-                                      n_samples)
         n_true = None
+    # a single-width ELL bounds its (rows, K, S) gather buffer by row
+    # blocks; the bucketed formats block themselves
+    block_rows = (_auto_block_rows(graph.n_cells, graph.max_degree,
+                                   n_samples)
+                  if isinstance(graph, EllGraph) else None)
     s0 = _onehot_device(codes, n_samples, dtype, dev)
     c_counts = torch.as_tensor(c_counts_host, dtype=dtype, device=dev)
     colsums = graph.colsums(self_weight)
@@ -333,7 +352,7 @@ def _nam(data, sid_name, sids=None, nsteps=None, maxnsteps=15, self_weight=1,
     if is_block:
         # back to the caller's cell order (and drop padding rows)
         if ordering is not None:
-            s = s[torch.as_tensor(ordering.inv, device=dev)]
+            s = s[torch.as_tensor(ordering.inv, device=dev).long()]
         else:
             s = s[:n_cells]
     nam = (s / c_counts[None, :]).T  # (samples, cells)

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 import cna_tpu_torch as ct
+from cna_tpu_torch.graph.device import DeviceConnectivities
 from cna_tpu_torch.ops import _build
+from cna_tpu_torch.ops import ivf as ivf_ops
 from cna_tpu_torch.ops import knn as knn_ops
 
 from .torch_parity import need_cuda
@@ -55,6 +57,96 @@ def test_kernel_rejects_what_it_cannot_take():
                                       dtype=torch.float64), 3)
 
 
+def _random_layout(f_pad, g, d, n_dummy, min_count=1):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(f_pad + g + d)
+    x4 = torch.randn(f_pad, g, ivf_ops.kernel_d_pad(d), generator=gen,
+                     device="cuda")
+    x4[:, :, d:] = 0.0
+    counts = torch.randint(min_count, g + 1, (f_pad,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    counts[f_pad - n_dummy:] = 0
+    csum = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    return gen, x4, counts, csum
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f_pad,g,d,q_blocks,n_probe,k", [
+    (64, 128, 20, 1, 32, 15), (64, 64, 12, 4, 32, 10),
+    (96, 128, 33, 1, 48, 64), (32, 32, 3, 2, 16, 5),
+    (48, 128, 128, 1, 16, 128), (40, 8, 5, 1, 16, 3)])
+def test_ivf_score_matches_plain(f_pad, g, d, q_blocks, n_probe, k):
+    need_cuda()
+    gen, x4, counts, csum = _random_layout(f_pad, g, d, n_dummy=8)
+    ns = f_pad // q_blocks
+    sel = torch.randperm(ns, generator=gen, device="cuda")[:ns // 2 + 1].to(
+        torch.int32)
+    probes = torch.stack([
+        torch.randperm(f_pad, generator=gen, device="cuda")[:n_probe]
+        for _ in range(len(sel))]).to(torch.int32)
+    args = (x4, sel, probes, counts, csum, k)
+    before = _build.launch_counts().get(ivf_ops.KERNEL, 0)
+    negd, idx = ivf_ops.score_blocks(*args, g=g, q_blocks=q_blocks)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[ivf_ops.KERNEL] == before + 1
+    pn, pi = ivf_ops.score_blocks_plain(*args, g=g, q_blocks=q_blocks)
+    found = torch.isfinite(pn)
+    assert bool((torch.isfinite(negd) == found).all())
+    assert bool((idx[~found] == 0).all())
+    err = torch.where(found, negd - pn, 0.0).abs() / torch.clamp(-pn, min=1.0)
+    assert float(err.max()) <= F32_DIST_ATOL
+    # same ids wherever the plain version's distances are not tied
+    gap = torch.diff(torch.where(found, -pn, float("inf")), dim=2)
+    untied = torch.ones_like(found)
+    untied[..., 1:] &= ~(gap <= F32_DIST_ATOL)
+    untied[..., :-1] &= ~(gap <= F32_DIST_ATOL)
+    assert bool((idx == pi)[found & untied].all())
+
+
+@pytest.mark.gpu
+def test_ivf_score_rejects_what_it_cannot_take():
+    need_cuda()
+    _, x4, counts, csum = _random_layout(32, 64, 5, n_dummy=2)
+    sel = torch.arange(4, device="cuda", dtype=torch.int32)
+    probes = torch.zeros((4, 16), device="cuda", dtype=torch.int32)
+    with pytest.raises(ValueError, match="k <= 128"):
+        ivf_ops.score_blocks(x4, sel, probes, counts, csum, 129, g=64)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ivf_ops.score_blocks(x4, sel, probes[:, :8].contiguous(), counts,
+                             csum, 5, g=64)
+    with pytest.raises(ValueError, match="is on"):
+        ivf_ops.score_blocks(x4, sel.cpu(), probes, counts, csum, 5, g=64)
+
+
+@pytest.mark.gpu
+def test_ivf_neighbors_on_the_card_go_through_the_kernel():
+    need_cuda()
+    try:
+        ct.config.set_device("cuda")
+        ct.config.enable_x64(False)
+        d, samplem = ct.data.synthetic_dataset(
+            n_samples=20, cells_per_sample=1500, n_genes=20, seed=2)
+        ct.pp.pca(d, n_comps=10)
+        ct.ops.reset_launch_counts()
+        ct.pp.neighbors(d, n_neighbors=15, method="ivf")
+        assert ct.ops.launch_counts().get(ivf_ops.KERNEL, 0) >= 1
+        assert knn_ops.KERNEL not in ct.ops.launch_counts()
+        conn = d.obsp["connectivities"]
+        assert isinstance(conn, DeviceConnectivities)
+        assert conn.ell.device.type == "cuda"
+        assert d.uns["neighbors"]["ivf"]["verify_recall"] >= 0.9
+        # the same index twice: k-means has no atomics, so the same graph
+        first = conn.tocsr()
+        ct.pp.neighbors(d, n_neighbors=15, method="ivf")
+        assert abs(first - d.obsp["connectivities"].tocsr()).max() == 0
+        p = ct.tl.association(d, samplem["case"].astype(float), "id",
+                              Nnull=200, seed=0)
+        assert 0 < p <= 1
+    finally:
+        ct.config.set_device("cpu")
+        ct.config.enable_x64(True)
+
+
 @pytest.mark.gpu
 def test_neighbors_on_the_card_goes_through_the_kernel():
     need_cuda()
@@ -69,6 +161,12 @@ def test_neighbors_on_the_card_goes_through_the_kernel():
         assert ct.ops.launch_counts() == {knn_ops.KERNEL: 1}
         params = d.uns["neighbors"]["params"]
         assert params["knn_method_resolved"] == "pallas"
+        # on the card every method takes the device-resident graph branch
+        conn = d.obsp["connectivities"]
+        assert isinstance(conn, DeviceConnectivities)
+        assert conn.ordering is None and conn.ell.device.type == "cuda"
+        csr = conn.tocsr()
+        assert abs(csr - csr.T).max() == 0
     finally:
         ct.config.set_device("cpu")
         ct.config.enable_x64(True)

@@ -15,7 +15,7 @@ from cna_tpu.ops.knn_pallas import knn_pallas
 from cna_tpu.pp.knn import knn_search as tpu_knn_search
 from cna_tpu_torch.ops import _build
 from cna_tpu_torch.ops import knn as knn_ops
-from cna_tpu_torch.pp.knn import knn_search, resolve_method
+from cna_tpu_torch.pp.knn import knn_device, knn_search, resolve_method
 
 from .torch_parity import brute_knn, torch_cpu_x64  # noqa: F401
 
@@ -105,16 +105,28 @@ def test_knn_search_pallas_and_approx_on_cpu():
     (20_001, "cpu", "approx"),
     (20_001, "cuda", "pallas"),
     (262_144, "cuda", "pallas"),
+    (262_145, "cuda", "ivf"),
 ])
 def test_resolve_method_auto(n, device, expect):
     assert resolve_method(n, "auto", device) == expect
 
 
 def test_resolve_method_unported_and_unknown():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        resolve_method(262_145, "auto", "cuda")
-    with pytest.raises(NotImplementedError, match="IVF"):
-        resolve_method(1000, "ivf", "cpu")
+    # IVF is ported: 'auto' above 262,144 points and 'ivf' resolve to it
+    assert resolve_method(262_145, "auto", "cuda") == "ivf"
+    assert resolve_method(262_145, "auto", "cpu") == "ivf"
+    assert resolve_method(1000, "ivf", "cpu") == "ivf"
     with pytest.raises(ValueError, match="unknown kNN method"):
         resolve_method(1000, "annoy", "cpu")
     assert resolve_method(10, "pallas", "cpu") == "pallas"
+    with pytest.raises(ValueError, match="ivf_knn_device"):
+        knn_device(torch.zeros(4, 2), 2, "ivf")
+
+
+def test_knn_search_ivf_on_cpu():
+    x = np.random.RandomState(5).randn(1_500, 6).astype(np.float32)
+    ref_idx, _ = brute_knn(x.astype(np.float64), 8)
+    idx, d = knn_search(x, 8, method="ivf")
+    assert idx.dtype == np.int32 and d.dtype == np.float32
+    assert (idx[:, 0] == np.arange(1_500)).all() and (d[:, 0] == 0).all()
+    assert _recall(idx, ref_idx) >= 0.9

@@ -25,7 +25,9 @@ PKG = ROOT / "cna_tpu_torch"
 
 
 def test_import_pulls_in_neither_jax_nor_cna_tpu():
-    code = ("import sys, cna_tpu_torch, cna_tpu_torch.ops.knn; "
+    code = ("import sys, cna_tpu_torch, cna_tpu_torch.ops.knn, "
+            "cna_tpu_torch.ops.ivf, cna_tpu_torch.pp.ivf_fine, "
+            "cna_tpu_torch.graph.device; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cna_tpu' "
             "or m.startswith('cna_tpu.')]; "
@@ -53,10 +55,12 @@ def test_namespace_mirrors_the_tpu_package():
     for name in ("association", "nam", "svd_nam", "diffuse",
                  "diffuse_stepwise", "set_graph_format"):
         assert callable(getattr(ct.tl, name)), name
-    for name in ("pca", "pca_array", "knn_search", "neighbors",
+    for name in ("pca", "pca_array", "knn_search", "ivf_knn", "neighbors",
                  "fuzzy_connectivities"):
         assert callable(getattr(ct.pp, name)), name
-    assert callable(ct.ut.graph_from_numpy)
+    for name in ("graph_from_numpy", "sorted_ext_graph_from_numpy",
+                 "fine_index_from_numpy"):
+        assert callable(getattr(ct.ut, name)), name
     assert ct.association is ct.tl.association
 
 
@@ -142,11 +146,25 @@ def test_unported_paths_raise_not_implemented():
         ct.tl.association(d, y, "sample", mesh=object())
     with pytest.raises(NotImplementedError, match="nam_savepoint"):
         ct.tl.association(d, y, "sample", nam_savepoint="nam.npz")
-    with pytest.raises(NotImplementedError, match="IVF"):
-        ct.pp.neighbors(d, method="ivf")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        ct.pp.ivf_knn(d.obsm["X_pca"], 5, devices=["cuda:0", "cuda:1"])
     sparse = ct.CellData(X=sp.random(50, 8, density=0.3, format="csr"))
     with pytest.raises(NotImplementedError, match="sparse"):
         ct.pp.pca(sparse)
+
+
+def test_ivf_neighbors_run_end_to_end():
+    d, y = _demo()
+    p_exact = ct.tl.association(d, y, "sample", Nnull=50, seed=1)
+    ct.pp.neighbors(d, n_neighbors=5, method="ivf")
+    assert d.uns["neighbors"]["params"]["knn_method_resolved"] == "ivf"
+    assert type(d.obsp["connectivities"]).__name__ == "DeviceConnectivities"
+    p_ivf = ct.tl.association(d, y, "sample", Nnull=50, seed=1)
+    # 240 cells are two fine blocks, both probed: the exact lists
+    assert p_ivf == p_exact
+    for fmt in ("ell", "bucketed"):  # a device graph serves both formats
+        ct.tl.set_graph_format(d, fmt)
+        assert ct.tl.association(d, y, "sample", Nnull=50, seed=1) == p_ivf
 
 
 def test_ell_format_end_to_end():
@@ -170,8 +188,13 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.delenv("CUDA_PATH", raising=False)
+    for name in _build.KERNELS:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build(name)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build("knn_exact")
+        _build.build_all()
+    assert sorted(f.stem for f in _build.CSRC.glob("*.cu")) \
+        == sorted(_build.KERNELS)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
