@@ -25,10 +25,19 @@ Phases, each of which must pass (any failure exits non-zero):
 7. card vs CPU: the same chain at 5,000 cells on cuda in float32 and on
    the CPU in float64, stage by stage (PCA scores, kNN lists up to
    near-ties, fuzzy graph weights, the NAM diffused from the card's own
-   graph) and end to end (diffusion steps, k).
+   graph) and end to end (diffusion steps, k);
+8. the banded path: 1,000,000 cells on continuous trajectories (50
+   samples x 20,000 cells x 50 genes, ``structure="manifold"``) ->
+   ``pp.pca`` -> ``pp.neighbors`` -> ``tl.association`` under the default
+   graph format, then ``tl.set_graph_format(d, 'banded')`` (host packing
+   of the locality-ordered graph, timed by phase) and the same call
+   twice, every diffusion step through the banded SpMM kernel; held to
+   the default format's result, and the kernel timed at that graph's own
+   shape beside its plain version, its bound and ``torch.sparse.mm``;
+9. 'block' and 'hybrid' at 100,000 cells (manifold), each held to 'ell'.
 
-Each path of phases 4 and 5 runs with the kernel launch counts set to 0
-just before it and read just after.
+Each path of phases 4, 5 and 8 runs with the kernel launch counts set to
+0 just before it and read just after.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the ``{"ok": true, "device": ...}`` line.  Without a CUDA
@@ -77,6 +86,16 @@ NAM_RTOL = 1e-4
 # (d - rho) / sigma carries the float32 distance error divided by sigma,
 # so the error is absolute, w * delta <= delta (a CPU float32 run: 4.4e-5)
 GRAPH_F32_DIST_ATOL = 5e-4
+
+
+# banded SpMM kernel vs its plain version on the card, relative to max|y|:
+# float32 sums in another order; float64 likewise at its own precision
+BANDED_RTOL = {"float32": 1e-5, "float64": 1e-12}
+# the banded format against the default format at 1,000,000 cells, and the
+# block formats against 'ell' at 100,000 (float32 states, other sum order)
+FORMAT_NAM_RTOL = 1e-4
+FORMAT_NCORR_MIN = 0.9999
+FORMAT_NSTEPS = 3  # diffusion steps of the fixed-step NAM comparisons
 
 
 def log(*parts):
@@ -654,6 +673,364 @@ def card_vs_cpu(ct, card="cuda"):
     return rec
 
 
+def banded_random_matrix(n, k, band, seed, long_range_frac=0.05):
+    """A seeded symmetric weighted matrix with mostly-local neighbours:
+    ``k`` per row within ``band`` of the diagonal and a share of
+    ``long_range_frac`` anywhere (scipy CSR, float64)."""
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(n), k)
+    cols = np.clip(rows + rng.randint(-band, band + 1, size=n * k), 0, n - 1)
+    n_far = int(n * k * long_range_frac)
+    rows = np.concatenate([rows, rng.randint(0, n, n_far)])
+    cols = np.concatenate([cols, rng.randint(0, n, n_far)])
+    keep = rows != cols
+    w = rng.rand(int(keep.sum())) * 0.9 + 0.1
+    a = sp.csr_matrix((w, (rows[keep], cols[keep])), shape=(n, n))
+    return (a + a.T).tocsr()
+
+
+def check_banded_case(label, graph, x):
+    """The banded kernel's in-band product against its plain version on
+    the card, on one packed graph and state; returns a record."""
+    import torch
+
+    from cna_tpu_torch.ops import spmm_banded as sb
+
+    y = sb.banded_inband(graph, x)
+    torch.cuda.synchronize()
+    ref = sb.banded_spmm_plain(graph.lidx, graph.weights, graph.slab_starts,
+                               x, graph.row_tile, graph.slab_rows)
+    torch.cuda.synchronize()
+    if y.shape != (graph.lidx.shape[0], x.shape[1]) or y.dtype != x.dtype:
+        raise AssertionError(f"banded_spmm {label}: output {tuple(y.shape)} "
+                             f"{y.dtype}")
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"banded_spmm {label}: non-finite output")
+    dtype = str(x.dtype).replace("torch.", "")
+    err = float((y - ref).abs().max())
+    scale = float(ref.abs().max())
+    rel = err / scale if scale > 0 else err
+    if rel > BANDED_RTOL[dtype]:
+        raise AssertionError(f"banded_spmm {label}: differs from the plain "
+                             f"version by {err} (relative {rel})")
+    return dict(label=label, dtype=dtype, n=graph.n_rows_true,
+                n_pad=int(graph.lidx.shape[0]), k=int(graph.lidx.shape[1]),
+                s=int(x.shape[1]), row_tile=graph.row_tile,
+                slab_rows=graph.slab_rows, max_abs_err=err, max_rel_err=rel,
+                max_abs_y=scale)
+
+
+def banded_odd_cases(dev="cuda"):
+    """The banded kernel off its main shape: S of 1, not a multiple of 4,
+    at and just above one column chunk, and a cohort of 200; N below the
+    slab and not a multiple of the row tile; K of 0 and K not a multiple
+    of 4; a spill of width 0; a small geometry; float32 and float64."""
+    import torch
+
+    from cna_tpu_torch.ops import spmm_banded as sb
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def state(graph, s):
+        return torch.rand((graph.n_rows_true, s), generator=gen,
+                          device=dev, dtype=graph.dtype)
+
+    recs = []
+    a = banded_random_matrix(5000, 12, 300, seed=1)
+    for dtype in (np.float32, np.float64):
+        g = sb.banded_from_scipy(a, dtype=dtype, device=dev)
+        if g.spill_indices.shape[1] == 0 or g.lidx.shape[0] == 5000:
+            raise AssertionError("the odd-shape graph has no spill or no "
+                                 "row padding")
+        for s in (1, 7, 45, 46, 50, 200):
+            recs.append(check_banded_case(f"N=5000 S={s}", g, state(g, s)))
+        # K not a multiple of 4: one more empty slot per row
+        pad = g.lidx.new_zeros((g.lidx.shape[0], 1))
+        odd = sb.banded_from_arrays(
+            torch.cat([g.lidx, pad], 1), torch.cat(
+                [g.weights, pad.to(g.dtype)], 1), g.slab_starts,
+            g.spill_indices, g.spill_weights, g.overflow_rows,
+            g.overflow_cols, g.overflow_weights, g.colsums_raw,
+            g.n_rows_true, g.row_tile, g.slab_rows, device=dev)
+        recs.append(check_banded_case("K not a multiple of 4", odd,
+                                      state(odd, 13)))
+        # one tile set whose slab is longer than the data
+        small = sb.banded_from_scipy(
+            banded_random_matrix(1000, 8, 200, seed=2), dtype=dtype,
+            device=dev)
+        if small.slab_rows <= small.lidx.shape[0]:
+            raise AssertionError("the N < slab case is not below its slab")
+        recs.append(check_banded_case("N=1000 < slab", small,
+                                      state(small, 20)))
+        # no long-range edge: a spill of width 0
+        tight = sb.banded_from_scipy(
+            banded_random_matrix(3000, 8, 100, seed=3, long_range_frac=0.0),
+            dtype=dtype, device=dev)
+        if tight.spill_indices.shape[1] != 0:
+            raise AssertionError("the in-band-only graph has a spill")
+        recs.append(check_banded_case("spill width 0", tight,
+                                      state(tight, 9)))
+        # K = 0
+        empty = sb.banded_from_arrays(
+            np.zeros((512, 0), np.int32), np.zeros((512, 0), dtype),
+            np.zeros(2, np.int32), np.zeros((300, 0), np.int32),
+            np.zeros((300, 0), dtype), np.zeros(0, np.int32),
+            np.zeros(0, np.int32), np.zeros(0, dtype), np.zeros(300, dtype),
+            300, 256, 1280, device=dev)
+        recs.append(check_banded_case("K=0", empty, state(empty, 5)))
+        # a small geometry (row_tile 64, window 16)
+        g64 = sb.banded_from_scipy(
+            banded_random_matrix(777, 6, 12, seed=4), row_tile=64,
+            window=16, dtype=dtype, device=dev)
+        recs.append(check_banded_case("row_tile=64 window=16", g64,
+                                      state(g64, 33)))
+    return recs
+
+
+def banded_library_csr(graph, n):
+    """The in-band edges of ``graph`` as one CSR tensor (N_pad, n) for the
+    ``torch.sparse.mm`` yardstick (never used by the package)."""
+    import torch
+
+    n_pad, k = graph.lidx.shape
+    starts = torch.repeat_interleave(graph.slab_starts.long(),
+                                     graph.row_tile)
+    live = graph.weights != 0
+    cols = (starts[:, None] + graph.lidx.long())[live]
+    crow = torch.zeros(n_pad + 1, dtype=torch.int64, device=live.device)
+    crow[1:] = torch.cumsum(live.sum(dim=1), 0)
+    return torch.sparse_csr_tensor(crow, cols, graph.weights[live],
+                                   size=(n_pad, n))
+
+
+def banded_bound(graph, n, s):
+    """The least time the card could take for the in-band product: its
+    bytes, each of lidx, w, slab_starts and x read once and y written
+    once, at the card's memory rate (2 flop per slot and column are far
+    below the float32 rate).  Also the figure with every tile reading its
+    whole slab of x."""
+    n_pad, k = graph.lidx.shape
+    item = graph.weights.element_size()
+    slots = float(n_pad) * k
+    nbytes = (slots * (4 + item) + 4.0 * graph.slab_starts.numel()
+              + item * float(s) * (n + n_pad))
+    flops = 2.0 * slots * s
+    x_bytes = item * float(s) * n
+    slab_bytes = nbytes + x_bytes * (graph.slab_rows / graph.row_tile - 1)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return dict(flops=flops, bytes=nbytes,
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                whole_slab_bytes_ms=1e3 * slab_bytes / PEAK_BYTES_PER_S)
+
+
+def pack_phases(prof, first):
+    """Seconds of the graph_pack phases recorded since phase ``first``."""
+    out = {}
+    for p in prof.phases[first:]:
+        if p["phase"].startswith("graph_pack"):
+            out[p["phase"]] = out.get(p["phase"], 0.0) + p["seconds"]
+    return out
+
+
+def step_ms(d, fmt, s_cols, reps=5, dev="cuda"):
+    """Milliseconds per diffusion step of ``d``'s graph under ``fmt`` on a
+    random (rows, s_cols) state (CUDA events)."""
+    import torch
+
+    from cna_tpu_torch.ops import spmm
+    from cna_tpu_torch.tools._nam import get_device_graph
+
+    graph, _ = get_device_graph(d, fmt=fmt)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    state = torch.rand((graph.n_rows, s_cols), generator=gen, device=dev,
+                       dtype=graph.dtype)
+    colsums = graph.colsums(1)
+    return cuda_ms(lambda: spmm.diffusion_step(state, graph, colsums, 1),
+                   reps)
+
+
+def nam_rel_err(ref, other):
+    """max |other - ref| / max |ref| of two NAM DataFrames."""
+    a, b = ref.to_numpy(), other.to_numpy()
+    if a.shape != b.shape or not np.isfinite(b).all():
+        raise AssertionError("NAMs differ in shape or are not finite")
+    return float(np.max(np.abs(b - a)) / np.max(np.abs(a)))
+
+
+def banded_path(ct, dev="cuda", cells_per_sample=20_000):
+    """The banded path at full width: 1,000,000 cells on trajectories, the
+    association under the default format and under 'banded' (twice), the
+    two held together; then the kernel alone at this graph's shape.
+    Returns (launch counts of the path, record, kernel record)."""
+    import torch
+
+    from cna_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                   spmm_banded as sb)
+    from cna_tpu_torch.tools._nam import get_device_graph, nam_arrays
+    from cna_tpu_torch.utils import profiling
+
+    ct.config.set_device(dev)
+    ct.config.enable_x64(False)
+    t0 = time.perf_counter()
+    d, samplem = ct.data.synthetic_dataset(
+        n_samples=50, cells_per_sample=cells_per_sample, n_genes=50,
+        seed=0,
+        structure="manifold")
+    y = samplem["case"].astype(float)
+    make_s = time.perf_counter() - t0
+    prof = profiling.enable_profiling()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def assoc():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ct.tl.association(d, y, "id", Nnull=1000, seed=0,
+                                return_full=True)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ct.pp.pca(d, n_comps=20)
+    ct.pp.neighbors(d, n_neighbors=15)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    res_def, def_s = assoc()
+    n_before = len(prof.phases)
+    ct.tl.set_graph_format(d, "banded")
+    res_b1, banded_first_s = assoc()
+    counts = launch_counts()
+    packs = pack_phases(prof, n_before)
+
+    # the steps of one association, and the launches they cost
+    reset_launch_counts()
+    arrays, _ = nam_arrays(d, "id")
+    per_nam = launch_counts().get(sb.KERNEL, 0)
+    res_b2, banded_second_s = assoc()
+    ct.tl.set_graph_format(d, "bucketed")
+    arrays_def, _ = nam_arrays(d, "id")
+    nam_def, _ = ct.tl.nam(d, "id", nsteps=FORMAT_NSTEPS)
+    ct.tl.set_graph_format(d, "banded")
+    nam_b, _ = ct.tl.nam(d, "id", nsteps=FORMAT_NSTEPS)
+    nam_err = nam_rel_err(nam_def, nam_b)
+    del nam_def, nam_b
+
+    graph, ordering = get_device_graph(d)
+    if not isinstance(graph, sb.BandedGraph) or ordering is None:
+        raise AssertionError(f"the packed graph is {type(graph).__name__}")
+    r = float(np.corrcoef(np.asarray(res_def.ncorrs),
+                          np.asarray(res_b1.ncorrs))[0, 1])
+    rec = dict(
+        cells=d.n_obs, samples=50, make_data_s=make_s, graph_s=graph_s,
+        knn_method_resolved=d.uns["neighbors"]["params"][
+            "knn_method_resolved"],
+        band_fraction=graph.band_fraction(), k=int(graph.lidx.shape[1]),
+        spill_width=int(graph.spill_indices.shape[1]),
+        coo_tail=int(graph.overflow_rows.shape[0]),
+        tiles=int(graph.slab_starts.shape[0]), row_tile=graph.row_tile,
+        slab_rows=graph.slab_rows, graph_pack_s=packs,
+        nsteps=(arrays_def.nsteps, arrays.nsteps),
+        banded_launches_per_nam=per_nam,
+        association_default_s=def_s,
+        association_banded_first_s=banded_first_s,
+        association_banded_second_s=banded_second_s,
+        p=(res_def.p, res_b1.p, res_b2.p),
+        k_pcs=(res_def.k, res_b1.k, res_b2.k), ncorrs_corr=r,
+        nam_rel_err=nam_err,
+        step_ms_banded=step_ms(d, "banded", 50, dev=dev),
+        step_ms_default=step_ms(d, "bucketed", 50, dev=dev),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    failed = []
+    if counts.get(sb.KERNEL, 0) < arrays.nsteps or per_nam != arrays.nsteps:
+        failed.append("fewer banded_spmm launches than diffusion steps")
+    if arrays.nsteps != arrays_def.nsteps:
+        failed.append("diffusion steps")
+    if not (res_def.k == res_b1.k == res_b2.k) or res_b1.p != res_b2.p:
+        failed.append("k, or p of the second call")
+    if (res_def.p < 0.05) != (res_b1.p < 0.05):
+        failed.append("decision at p < 0.05")
+    if not r > FORMAT_NCORR_MIN:
+        failed.append("ncorrs")
+    if not nam_err <= FORMAT_NAM_RTOL:
+        failed.append("NAM")
+    if failed:
+        raise AssertionError(f"banded and default formats disagree on "
+                             f"{failed}: {rec}")
+
+    # the kernel alone at this graph's shape: the in-band product
+    n, s = d.n_obs, 50
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.rand((n, s), generator=gen, device=dev, dtype=graph.dtype)
+    krec = check_banded_case("1M-cell manifold graph", graph, x)
+    csr = banded_library_csr(graph, n)
+    lib_y = torch.sparse.mm(csr, x)
+    lib_err = float((lib_y - sb.banded_inband(graph, x)).abs().max())
+    if lib_err > BANDED_RTOL["float32"] * krec["max_abs_y"]:
+        raise AssertionError("torch.sparse.mm of the in-band edges differs "
+                             f"from the kernel by {lib_err}")
+    del lib_y
+    krec["ms"] = cuda_ms(lambda: sb.banded_inband(graph, x), 10)
+    krec["plain_ms"] = cuda_ms(lambda: sb.banded_spmm_plain(
+        graph.lidx, graph.weights, graph.slab_starts, x, graph.row_tile,
+        graph.slab_rows), 3)
+    krec["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x), 5)
+    krec["in_band_edges"] = int(csr.values().shape[0])
+    krec.update(banded_bound(graph, n, s))
+    return counts, rec, krec
+
+
+def block_formats(ct, dev="cuda", cells_per_sample=2000):
+    """'block' and 'hybrid' once each at 100,000 cells (manifold): the NAM
+    of a fixed number of steps against 'ell'."""
+    import torch
+
+    from cna_tpu_torch.tools._nam import get_device_graph
+    from cna_tpu_torch.utils import profiling
+
+    ct.config.set_device(dev)
+    ct.config.enable_x64(False)
+    d, _ = ct.data.synthetic_dataset(
+        n_samples=50, cells_per_sample=cells_per_sample, n_genes=50,
+        seed=0,
+        structure="manifold")
+    prof = profiling.enable_profiling()
+    ct.pp.pca(d, n_comps=20)
+    ct.pp.neighbors(d, n_neighbors=15)
+    ct.tl.set_graph_format(d, "ell")
+    nam_ell, _ = ct.tl.nam(d, "id", nsteps=FORMAT_NSTEPS)
+    out = dict(step_ms_ell=step_ms(d, "ell", 50, dev=dev))
+    for fmt in ("block", "hybrid"):
+        n_before = len(prof.phases)
+        ct.tl.set_graph_format(d, fmt)
+        nam_f, _ = ct.tl.nam(d, "id", nsteps=FORMAT_NSTEPS)
+        err = nam_rel_err(nam_ell, nam_f)
+        graph, _ = get_device_graph(d)
+        block = graph.block if fmt == "hybrid" else graph
+        rec = dict(nam_rel_err=err, pairs=block.n_pairs,
+                   block_size=block.block_size,
+                   tile_gb=block.tiles.numel() * block.tiles.element_size()
+                   / 1e9,
+                   graph_pack_s=pack_phases(prof, n_before),
+                   step_ms=step_ms(d, fmt, 50, dev=dev))
+        if fmt == "hybrid":
+            rec["stray_ell_width"] = graph.ell.max_degree
+        out[fmt] = rec
+        if not err <= FORMAT_NAM_RTOL:
+            raise AssertionError(f"{fmt!r} and 'ell' NAMs differ: {out}")
+        del graph, block, nam_f
+        ct.tl.set_graph_format(d, "ell")
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -663,7 +1040,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         import cna_tpu_torch as ct
-        from cna_tpu_torch.ops import _build, ivf, knn
+        from cna_tpu_torch.ops import _build, ivf, knn, spmm_banded
     except ImportError as exc:
         print(f"chip_smoke: cna_tpu_torch not found beside this script "
               f"({exc})", file=sys.stderr)
@@ -690,6 +1067,9 @@ def main() -> int:
     ivf_cases = ivf_odd_cases()
     for rec in ivf_cases:
         log("ivf_score vs plain:", json.dumps(rec))
+    banded_cases = banded_odd_cases()
+    for rec in banded_cases:
+        log("banded_spmm vs plain:", json.dumps(rec))
 
     counts, slice_rec, exact_res = main_path(ct)
     log("100k path:", json.dumps(slice_rec))
@@ -708,6 +1088,15 @@ def main() -> int:
 
     cmp_rec = card_vs_cpu(ct)
     log("card vs cpu:", json.dumps(cmp_rec))
+
+    banded_counts, banded_rec, banded_main = banded_path(ct)
+    log("banded 1M path:", json.dumps(banded_rec))
+    log("banded-1M-path launches:", json.dumps(banded_counts))
+    log("banded_spmm vs plain:", json.dumps(banded_main))
+    banded_cases.append(banded_main)
+    torch.cuda.empty_cache()
+
+    log("block and hybrid at 100k:", json.dumps(block_formats(ct)))
 
     main_case = cases[0]
     kernels = [{
@@ -745,6 +1134,25 @@ def main() -> int:
                    "k")},
         "slot_share": f"1/{IVF_SHARE}",
         "all_slots": ivf_main["all_slots"],
+    }, {
+        # the in-band product at the 1M-cell manifold graph's own shape;
+        # the library yardstick is torch.sparse.mm of the in-band edges
+        "name": spmm_banded.KERNEL,
+        "route": "cuda",
+        "source": "cna_tpu_torch/csrc/banded_spmm.cu",
+        "replaces": "cna_tpu/ops/spmm_pallas.py:216",
+        "launches": banded_counts.get(spmm_banded.KERNEL, 0),
+        "max_abs_err": max(c["max_abs_err"] for c in banded_cases),
+        "max_rel_err": max(c["max_rel_err"] for c in banded_cases),
+        "ms": banded_main["ms"],
+        "plain_ms": banded_main["plain_ms"],
+        "bound_ms": banded_main["bound_ms"],
+        "bound_by": banded_main["bound_by"],
+        "library_ms": banded_main["library_ms"],
+        "whole_slab_bytes_ms": banded_main["whole_slab_bytes_ms"],
+        "shape": {key: banded_main[key] for key in
+                  ("n", "n_pad", "k", "s", "row_tile", "slab_rows",
+                   "in_band_edges")},
     }]
     if smi:
         log(smi)

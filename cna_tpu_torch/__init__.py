@@ -4,6 +4,7 @@ The port of the TPU package (``cna_tpu``) to PyTorch on an NVIDIA H100.
 It keeps that package's public names and contracts:
 
   cna_tpu_torch.tl.association / nam / svd_nam / diffuse / diffuse_stepwise
+  cna_tpu_torch.tl.set_graph_format, cna_tpu_torch.tl._stats
   cna_tpu_torch.pp (PCA / kNN / fuzzy-connectivity graph construction)
   cna_tpu_torch.CellData, cna_tpu_torch.config, cna_tpu_torch.ut
 
@@ -11,7 +12,7 @@ Plain tensor code is PyTorch; each TPU kernel on the ported path is a
 CUDA kernel written by hand for Hopper (``csrc/``, built by ``nvcc`` at
 first use).  Entry points compute on ``cuda`` unless the caller asks for
 the CPU with ``config.set_device("cpu")``.  Still to port (ROADMAP.md):
-``parallel``, ``pl``, ``read_h5ad`` and ``tl._stats``.
+``parallel``, ``pl``, ``pp.umap`` / ``pp.select_hvg`` and ``read_h5ad``.
 """
 
 from . import config

@@ -9,16 +9,22 @@ the bulk of edges sit in
 padded neighbour lists, so SpMM is a row gather plus a small contraction;
 hub-row overflow edges are applied with ``index_add_``, which on CUDA
 uses atomics, so the COO tail is not bit-repeatable from run to run.
+The opt-in locality formats are dense tiles (``graph.blocks``:
+``block_spmm``, batched matmuls summed by ``index_add_``) and the banded
+format (``ops.spmm_banded``, whose in-band product is the hand-written
+CUDA kernel).
 
-On the TPU these were XLA programs, not Pallas kernels; here they are
-plain torch gather + einsum (ROADMAP: a hand-written diffusion SpMM waits
-until the port's benchmark shows where the time goes).
+On the TPU all but the banded kernel were XLA programs, not Pallas
+kernels; here they are plain torch gather + einsum (ROADMAP: a
+hand-written gather SpMM waits until the port's benchmark shows where the
+time goes).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..graph.blocks import BlockGraph, HybridGraph
 from ..graph.buckets import BucketEllGraph
 from ..graph.device import SortedExtGraph
 from ..graph.ell import EllGraph
@@ -121,6 +127,26 @@ def sorted_ext_spmm(graph: SortedExtGraph, x):
                         graph.overflow_weights, x)
 
 
+def block_spmm(graph, x, pair_chunk: int = 2048):
+    """Block-dense SpMM: ``y = A @ x`` from (P, B, B) dense tiles.
+
+    Per pair p: ``y[rows[p]] += tiles[p] @ x[cols[p]]``: a contiguous
+    block gather, a batched matmul (``torch.bmm``, full float32) and a
+    sum by row block (``index_add_``, atomics on CUDA).  Pairs are
+    processed in chunks of ``pair_chunk`` to bound the gathered buffer.
+    ``x`` has ``graph.n_rows`` (padded) rows.
+    """
+    b = graph.block_size
+    xb = x.reshape(-1, b, x.shape[1])
+    out = torch.zeros_like(xb)
+    rows, cols = graph.pair_rows.long(), graph.pair_cols.long()
+    for lo in range(0, graph.n_pairs, pair_chunk):
+        hi = lo + pair_chunk
+        prod = torch.bmm(graph.tiles[lo:hi], xb[cols[lo:hi]])
+        out.index_add_(0, rows[lo:hi], prod)
+    return out.reshape(x.shape)
+
+
 def diffusion_step(s, graph, colsums, self_weight, block_rows=None):
     """One lazy-random-walk diffusion step (format-dispatched).
 
@@ -128,11 +154,20 @@ def diffusion_step(s, graph, colsums, self_weight, block_rows=None):
     ``colsums = a.sum(axis=0) + self_weight`` and
     ``s' = a @ (s/colsums) + self_weight * s/colsums``.
     """
+    from .spmm_banded import BandedGraph, banded_spmm  # imports this module
+
     t = s / colsums[:, None]
     if isinstance(graph, SortedExtGraph):
         return sorted_ext_spmm(graph, t) + self_weight * t
     if isinstance(graph, BucketEllGraph):
         return bucket_spmm(graph, t) + self_weight * t
+    if isinstance(graph, BandedGraph):
+        return banded_spmm(graph, t) + self_weight * t
+    if isinstance(graph, HybridGraph):
+        return (block_spmm(graph.block, t) + graph_spmm(graph.ell, t)
+                + self_weight * t)
+    if isinstance(graph, BlockGraph):
+        return block_spmm(graph, t) + self_weight * t
     if isinstance(graph, EllGraph):
         return graph_spmm(graph, t, block_rows=block_rows) + self_weight * t
     raise TypeError(f"no diffusion SpMM for {type(graph).__name__}")

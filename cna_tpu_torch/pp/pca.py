@@ -8,9 +8,9 @@ device; the (G, G) eigendecomposition runs on the host in numpy, as in
 the TPU package (``pp/pca.py:41-52``).
 
 At ``n * g >= 16M`` elements ``X`` goes to the device in row chunks
-(``_pca_dense_streamed``, the TPU package's ``pp/pca.py:123-159``).  Not
-ported yet (ROADMAP.md queue 1 item 4): a sparse ``X``, which raises
-NotImplementedError.
+(``_pca_dense_streamed``, the TPU package's ``pp/pca.py:123-159``); a
+scipy sparse ``X`` is streamed in densified row chunks and never
+materialized densely (``_pca_sparse``, ``pp/pca.py:69-120`` there).
 """
 
 from __future__ import annotations
@@ -51,6 +51,69 @@ def _pca_device(x, n_comps):
     return scores_dev, evals[:n_comps], evecs[:, :n_comps], float(cov.trace())
 
 
+_SPARSE_PCA_MAX_GENES = 4096
+
+
+def _gram_eigh(gram, colsum, n, n_comps):
+    """Center the accumulated gram on the host
+    (``cov = (X'X - n mu mu') / (n - 1)``) and eigendecompose it in
+    float64.  Returns (mean, evals, comps (G, n_comps), total_var)."""
+    gram = fetch(gram)
+    mean = fetch(colsum) / n
+    cov = (gram - n * np.outer(mean, mean)) / (n - 1)
+    evals, evecs = np.linalg.eigh(cov)
+    evals = evals[::-1]
+    evecs = evecs[:, ::-1]
+    comps = np.ascontiguousarray(evecs[:, :n_comps])
+    return mean, evals[:n_comps], comps, float(cov.trace())
+
+
+def _pca_sparse(x, n_comps, chunk_rows=65_536):
+    """PCA of a scipy sparse X without ever materializing it densely.
+
+    Streams densified row chunks (B x G, B*G bounded) through the same
+    two matmul stages as the dense path: accumulate the uncentered gram
+    ``X^T X`` and the column sums on the device (float64 accumulators),
+    center and eigh the (G, G) covariance on the host, then project the
+    chunks.  Exact: matches the dense path to rounding.  Guarded at
+    ``G <= _SPARSE_PCA_MAX_GENES``: above that the (G, G) covariance
+    stops being small; select genes first (the standard recipe upstream
+    of PCA).
+
+    Returns (scores_dev (N, n_comps), evals, evecs, total_var).
+    """
+    import scipy.sparse as sp
+
+    from .. import config
+
+    n, g = x.shape
+    if g > _SPARSE_PCA_MAX_GENES:
+        raise ValueError(
+            f"sparse PCA with {g} genes needs a (G, G) covariance that is "
+            "no longer small; select highly variable genes first to "
+            f"reduce to <= {_SPARSE_PCA_MAX_GENES} informative genes "
+            "(the standard recipe upstream of PCA)")
+    x = sp.csr_matrix(x)
+    dev, dtype = config.device(), config.default_float()
+
+    def chunk(lo):
+        return torch.as_tensor(x[lo:lo + chunk_rows].toarray()).to(
+            device=dev, dtype=dtype)
+
+    gram = torch.zeros((g, g), dtype=torch.float64, device=dev)
+    colsum = torch.zeros((g,), dtype=torch.float64, device=dev)
+    for lo in range(0, n, chunk_rows):
+        blk = chunk(lo)
+        gram += blk.T @ blk
+        colsum += blk.sum(dim=0)
+    mean, evals, comps, total_var = _gram_eigh(gram, colsum, n, n_comps)
+    comps_dev = torch.as_tensor(comps, dtype=dtype, device=dev)
+    shift = torch.as_tensor(mean @ comps, dtype=dtype, device=dev)
+    scores_dev = torch.cat([chunk(lo) @ comps_dev - shift[None, :]
+                            for lo in range(0, n, chunk_rows)])
+    return scores_dev, evals, comps, total_var
+
+
 def _pca_dense_streamed(x_host, n_comps, chunk_rows=131_072):
     """Dense PCA with chunked host-to-device copies.
 
@@ -78,18 +141,12 @@ def _pca_dense_streamed(x_host, n_comps, chunk_rows=131_072):
     for blk in chunks:
         gram += blk.T @ blk
         colsum += blk.sum(dim=0)
-    gram = fetch(gram)
-    mean = fetch(colsum) / n
-    cov = (gram - n * np.outer(mean, mean)) / (n - 1)
-    evals, evecs = np.linalg.eigh(cov)
-    evals = evals[::-1]
-    evecs = evecs[:, ::-1]
-    comps = np.ascontiguousarray(evecs[:, :n_comps])
+    mean, evals, comps, total_var = _gram_eigh(gram, colsum, n, n_comps)
     comps_dev = torch.as_tensor(comps, dtype=dtype, device=dev)
     shift = torch.as_tensor(mean @ comps, dtype=dtype, device=dev)
     scores_dev = torch.cat([blk @ comps_dev - shift[None, :]
                             for blk in chunks])
-    return scores_dev, evals[:n_comps], comps, float(cov.trace())
+    return scores_dev, evals, comps, total_var
 
 
 def pca_array(x, n_comps=50):
@@ -115,14 +172,13 @@ def pca(data, n_comps=50, key_added="X_pca"):
         raise ValueError("data.X is required for PCA")
     import scipy.sparse as sp
 
-    if sp.issparse(data.X):
-        raise NotImplementedError(
-            "PCA of a sparse X is not ported yet (ROADMAP.md queue 1 item "
-            "4); densify X first if it fits in memory")
     n, g = data.X.shape
     n_comps = min(n_comps, g, n)
     with global_profiler().phase("pca_compute", cells=int(n)):
-        if n * g >= _STREAM_MIN_ELEMS:
+        if sp.issparse(data.X):
+            scores_dev, variance, components, total_var = _pca_sparse(
+                data.X, n_comps)
+        elif n * g >= _STREAM_MIN_ELEMS:
             scores_dev, variance, components, total_var = \
                 _pca_dense_streamed(np.asarray(data.X), n_comps)
         else:

@@ -13,7 +13,7 @@ batched tensor programs:
 * The empirical-FDR histogram trick (``_stats.py:34-83``) as a collapsed
   histogram on the device (``ops.fdr``).
 
-``mesh=`` and ``nam_savepoint=`` are not ported yet.
+``mesh=`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -338,7 +338,8 @@ def compute_nam_and_reindex(data, y, sid_name, batches, covs, donorids,
 
 def _compute_nam_arrays_and_reindex(data, y, sid_name, batches, covs,
                                     donorids, filter_samples, nsteps,
-                                    show_progress, **kwargs):
+                                    show_progress, nam_savepoint=None,
+                                    **kwargs):
     """Device-resident variant of ``compute_nam_and_reindex``.
 
     Same semantics (row reindex to y's order, sample filter, zero-variance
@@ -346,7 +347,8 @@ def _compute_nam_arrays_and_reindex(data, y, sid_name, batches, covs,
     the small per-column variance mask syncs to the host.
     """
     arrays, kept = nam_arrays(data, sid_name, batches=batches, nsteps=nsteps,
-                              show_progress=show_progress, **kwargs)
+                              show_progress=show_progress,
+                              nam_savepoint=nam_savepoint, **kwargs)
 
     valid_samples = y.index[filter_samples]
     row_idx = arrays.samples.get_indexer(valid_samples)
@@ -387,12 +389,12 @@ def association(data, y, sid_name, batches=None, covs=None, donorids=None,
     Writes per-cell neighborhood coefficients into ``data.obs[key_added]``
     and per-cell FDRs into ``data.obs[f'{key_added}_fdr']``; returns the
     global permutation p-value (or the full result if ``return_full``).
-    ``mesh`` and ``nam_savepoint`` raise NotImplementedError (not ported).
+    ``nam_savepoint`` names an opt-in NAM savepoint file
+    (``utils.checkpoint``); ``mesh`` raises NotImplementedError (not
+    ported).
     """
     if mesh is not None:
         raise _not_ported("mesh= (several devices)", 8)
-    if nam_savepoint is not None:
-        raise _not_ported("nam_savepoint= (NAM checkpoints)", 7)
     out = select_output(show_progress)
 
     prof = global_profiler()
@@ -403,7 +405,8 @@ def association(data, y, sid_name, batches=None, covs=None, donorids=None,
         NAM, kept, batches, covs, donorids, filter_samples = (
             _compute_nam_arrays_and_reindex(
                 data, y, sid_name, batches, covs, donorids, filter_samples,
-                nsteps, show_progress, **kwargs))
+                nsteps, show_progress, nam_savepoint=nam_savepoint,
+                **kwargs))
 
     n_valid = filter_samples.sum()
     npcs = min(

@@ -20,8 +20,10 @@ small mask to the host.
 Graph formats: 'bucketed' (the default) and 'ell'; a device-resident
 graph (``graph.device.DeviceConnectivities``, what ``pp.neighbors`` stores
 on cuda and on the IVF path) serves both as it is.  'block', 'hybrid' and
-'banded', the ``mesh=`` paths and NAM savepoints are not ported yet
-(ROADMAP.md queue 1).
+'banded' are opt-in (``set_graph_format``): the graph is locality-ordered
+and packed once on the host, and 'banded' diffuses through the
+hand-written CUDA kernel of ``ops.spmm_banded``.  The ``mesh=`` paths are
+not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -36,13 +38,14 @@ from ..core.results import Result
 from ..graph.device import DeviceConnectivities
 from ..graph.ell import EllGraph, from_scipy
 from ..ops import linalg, moments, spmm
+from ..utils.profiling import global_profiler
 from ..utils.transfer import as_tensor, fetch, to_device
 from ._out import select_output
 
 _ELL_CACHE_KEY = "_cna_tpu_torch_ell_graph"
 _FORMAT_KEY = "_cna_tpu_torch_graph_format"
-_FORMATS = ("ell", "bucketed")
-_LATER_FORMATS = ("block", "hybrid", "banded")
+_LOCALITY_FORMATS = ("block", "hybrid", "banded")
+_FORMATS = ("ell", "bucketed") + _LOCALITY_FORMATS
 
 
 def _not_ported(what, item):
@@ -79,17 +82,32 @@ def set_graph_format(data, fmt: str) -> None:
       (``graph.buckets``): exact gather SpMM over ~nnz slots instead of
       N*K_p98, a win whenever the degree distribution is skewed;
     * 'ell' — single-width row-gather SpMM with a COO overflow tail.
+    * 'block' / 'hybrid' — cluster-reordered dense tiles
+      (``graph.blocks``; batched matmuls).
+    * 'banded' — the slab kernel of ``ops.spmm_banded`` on a locality
+      ordering (kd order of ``obsm['X_pca']``, else reverse
+      Cuthill-McKee).  It can pay only when the ordered graph is actually
+      banded; check ``BandedGraph.band_fraction()`` before committing a
+      long run to it.  On the 1,000,000-cell synthetic manifold data
+      (50 samples, 15 neighbours; NVIDIA H100 80GB HBM3, 700.00 W,
+      ``chip_smoke.py``) the band fraction was 0.43, a diffusion step
+      took 15.5 ms against 12.1 ms under the default format (the kernel's
+      in-band product 2.0 ms of it, the rest the out-of-band spill
+      gather), and the one-time host packing 17.5 s.
 
-    'block', 'hybrid' and 'banded' raise NotImplementedError (not ported
-    yet).
+    The three locality formats materialize a device-resident graph as a
+    host CSR and pack it on the host once (profiling phase
+    ``graph_pack``); the packed graph is cached in ``data.uns`` until the
+    format is set again.
     """
-    if fmt in _LATER_FORMATS:
-        raise _not_ported(f"graph format {fmt!r}", 3)
     if fmt not in _FORMATS:
         raise ValueError(
-            f"unknown graph format {fmt!r}; use 'ell' or 'bucketed'")
+            f"unknown graph format {fmt!r}; use 'ell', 'bucketed', "
+            "'block', 'hybrid' or 'banded'")
     data.uns[_FORMAT_KEY] = fmt
-    data.uns.pop(_ELL_CACHE_KEY, None)
+    for key in [k for k in data.uns
+                if isinstance(k, str) and k.startswith(_ELL_CACHE_KEY)]:
+        del data.uns[key]
 
 
 def get_device_graph(data, fmt=None):
@@ -97,10 +115,12 @@ def get_device_graph(data, fmt=None):
     ``data.uns``.
 
     Returns (graph, reordering): None for 'ell'; for 'bucketed' the
-    degree ``Reordering`` whose permuted axes the buckets are built on
+    degree ``Reordering`` and for 'block' / 'hybrid' / 'banded' the
+    locality ``Reordering`` whose permuted axes the graph is built on
     (callers permute the diffusion state in and out once per pipeline).
     A ``DeviceConnectivities`` is packed already and returns its own graph
-    and cell ordering (the IVF compact order, or None) for either format.
+    and cell ordering (the IVF compact order, or None) for 'ell' and
+    'bucketed'; an explicit locality format materializes its host CSR.
     """
     conn = get_connectivity(data)
     if isinstance(conn, EllGraph):
@@ -108,9 +128,8 @@ def get_device_graph(data, fmt=None):
     uns = getattr(data, "uns", None)
     if fmt is None:
         fmt = uns.get(_FORMAT_KEY, "ell") if uns is not None else "ell"
-    if fmt in _LATER_FORMATS:
-        raise _not_ported(f"graph format {fmt!r}", 3)
-    if isinstance(conn, DeviceConnectivities):
+    if isinstance(conn, DeviceConnectivities) \
+            and fmt not in _LOCALITY_FORMATS:
         # packed on the device already; 'bucketed' is satisfied by the
         # device graph too (its mirror columns are width-fitted)
         return conn.ell, conn.ordering
@@ -120,7 +139,33 @@ def get_device_graph(data, fmt=None):
         if cached is not None and cached[0] is conn:
             return cached[1], cached[2]
 
-    if fmt == "bucketed":
+    if fmt in _LOCALITY_FORMATS:
+        from ..graph.blocks import (cluster_ordering, from_scipy_blocks,
+                                    from_scipy_hybrid)
+        from ..graph.reorder import permute_graph, rcm_ordering
+        from ..ops.spmm_banded import banded_from_scipy
+
+        prof = global_profiler()
+        with prof.phase("graph_pack", cells=conn.shape[0]):
+            csr = conn
+            if isinstance(conn, DeviceConnectivities):
+                # an explicit locality format: materialize the host CSR
+                with prof.phase("graph_pack_csr"):
+                    csr = conn.tocsr()
+            obsm = getattr(data, "obsm", {})
+            with prof.phase("graph_pack_ordering"):
+                ordering = (cluster_ordering(obsm["X_pca"])
+                            if "X_pca" in obsm else rcm_ordering(csr))
+            with prof.phase("graph_pack_permute"):
+                permuted = permute_graph(csr, ordering)
+            with prof.phase("graph_pack_pack"):
+                if fmt == "banded":
+                    graph = banded_from_scipy(permuted)
+                elif fmt == "hybrid":
+                    graph = from_scipy_hybrid(permuted)
+                else:
+                    graph = from_scipy_blocks(permuted)
+    elif fmt == "bucketed":
         from ..graph.buckets import degree_ordering, from_scipy_buckets
         from ..graph.reorder import permute_graph
 
@@ -588,20 +633,42 @@ def nam_arrays(data, sid_name, batches=None, nsteps=None, self_weight=1,
                show_progress=False, mesh=None, nam_savepoint=None, **kwargs):
     """Device-resident variant of ``nam``: returns (NamArrays, keep).
 
-    ``mesh`` and ``nam_savepoint`` are not ported yet and raise
+    ``nam_savepoint``: optional path to a fingerprint-keyed diffusion
+    savepoint (see ``utils.checkpoint``).  The reference deliberately
+    never caches the NAM (its README.md:22, v0.2.0), so this is opt-in;
+    a changed graph/sample-assignment/step-count misses rather than
+    serving a stale matrix.  ``mesh`` is not ported yet and raises
     NotImplementedError when given.
     """
     if mesh is not None:
         raise _not_ported("mesh= (several devices)", 8)
-    if nam_savepoint is not None:
-        raise _not_ported("nam_savepoint= (NAM checkpoints)", 7)
     out = select_output(show_progress)
 
     if batches is None:
         sids = data.obs[sid_name].unique()
         batches = pd.Series(np.ones(len(sids)), index=sids)
 
-    out("computing NAM")
-    arrays = _nam(data, sid_name, nsteps=nsteps, self_weight=self_weight,
-                  show_progress=show_progress)
+    arrays = None
+    fingerprint = None
+    if nam_savepoint is not None:
+        from ..utils import checkpoint as ckpt
+
+        fingerprint = ckpt.nam_fingerprint(data, sid_name, nsteps=nsteps,
+                                           self_weight=self_weight)
+        hit = ckpt.load_nam(nam_savepoint, fingerprint)
+        if hit is not None:
+            out("loading NAM from savepoint")
+            nam_df, _, saved_nsteps = hit
+            arrays = NamArrays(nam=as_tensor(nam_df.to_numpy()),
+                               samples=pd.Index(nam_df.index),
+                               cells=pd.Index(nam_df.columns),
+                               nsteps=saved_nsteps)
+
+    if arrays is None:
+        out("computing NAM")
+        arrays = _nam(data, sid_name, nsteps=nsteps, self_weight=self_weight,
+                      show_progress=show_progress)
+        if nam_savepoint is not None:
+            ckpt.save_nam(nam_savepoint, arrays.to_df(), fingerprint,
+                          nsteps=arrays.nsteps)
     return _qc_nam_arrays(arrays, batches, show_progress=show_progress)

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from .. import config
+from ..graph.blocks import (BlockGraph, HybridGraph,
+                            block_graph_from_arrays)
 from ..graph.buckets import BucketEllGraph, from_bucket_arrays
 from ..graph.device import SortedExtGraph
 from ..graph.ell import EllGraph, from_arrays
@@ -36,6 +38,39 @@ def graph_from_numpy(indices, weights, colsums_raw, overflow_rows=None,
                                   device=device)
     return from_arrays(indices, weights, colsums_raw, overflow_rows,
                        overflow_cols, overflow_weights, device=device)
+
+
+def banded_graph_from_numpy(lidx, weights, slab_starts, spill_indices,
+                            spill_weights, overflow_rows, overflow_cols,
+                            overflow_weights, colsums_raw, n_rows_true,
+                            row_tile, slab_rows, device=None):
+    """The port's ``BandedGraph`` from the numpy fields of the TPU
+    package's (``ops/spmm_pallas.py``), name for name."""
+    from ..ops.spmm_banded import banded_from_arrays
+
+    return banded_from_arrays(
+        lidx, weights, slab_starts, spill_indices, spill_weights,
+        overflow_rows, overflow_cols, overflow_weights, colsums_raw,
+        n_rows_true, row_tile, slab_rows, device=device)
+
+
+def block_graph_from_numpy(tiles, pair_rows, pair_cols, colsums_raw,
+                           n_cells, device=None) -> BlockGraph:
+    """The port's ``BlockGraph`` from the numpy fields of the TPU
+    package's (``graph/blocks.py``), name for name."""
+    return block_graph_from_arrays(tiles, pair_rows, pair_cols, colsums_raw,
+                                   n_cells, device=device)
+
+
+def hybrid_graph_from_numpy(block: BlockGraph, ell: EllGraph, colsums_raw,
+                            n_cells, device=None) -> HybridGraph:
+    """The port's ``HybridGraph`` from its two converted parts
+    (``block_graph_from_numpy``, ``graph_from_numpy``) and the numpy
+    column sums of the full matrix."""
+    dev = block.device if device is None else torch.device(device)
+    return HybridGraph(block=block, ell=ell,
+                       colsums_raw=to_device(colsums_raw, dev),
+                       n_cells=int(n_cells))
 
 
 def sorted_ext_graph_from_numpy(direct_indices, direct_weights, ext_indices,

@@ -7,7 +7,9 @@ machine (which has no JAX, while ``tests/conftest.py`` imports it):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_card.py -m gpu
 """
 
+import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import cna_tpu_torch as ct
@@ -15,11 +17,15 @@ from cna_tpu_torch.graph.device import DeviceConnectivities
 from cna_tpu_torch.ops import _build
 from cna_tpu_torch.ops import ivf as ivf_ops
 from cna_tpu_torch.ops import knn as knn_ops
+from cna_tpu_torch.ops import spmm_banded as banded_ops
 
 from .torch_parity import need_cuda
 
 # float32 squared distances summed in different orders
 F32_DIST_ATOL = 1e-3
+# the banded kernel against its plain version, relative to max|y| (another
+# summation order at the state's own precision)
+BANDED_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 @pytest.mark.gpu
@@ -167,6 +173,102 @@ def test_neighbors_on_the_card_goes_through_the_kernel():
         assert conn.ordering is None and conn.ell.device.type == "cuda"
         csr = conn.tocsr()
         assert abs(csr - csr.T).max() == 0
+    finally:
+        ct.config.set_device("cpu")
+        ct.config.enable_x64(True)
+
+
+def _banded_matrix(n, k, band, seed, far=0.05):
+    rng = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(n), k)
+    cols = np.clip(rows + rng.randint(-band, band + 1, n * k), 0, n - 1)
+    n_far = int(n * k * far)
+    rows = np.concatenate([rows, rng.randint(0, n, n_far)])
+    cols = np.concatenate([cols, rng.randint(0, n, n_far)])
+    keep = rows != cols
+    a = sp.csr_matrix((rng.rand(int(keep.sum())) + 0.1,
+                       (rows[keep], cols[keep])), shape=(n, n))
+    return (a + a.T).tocsr()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,s,row_tile,window", [
+    (5000, 50, 256, 512), (5000, 1, 256, 512), (5000, 7, 256, 512),
+    (3000, 200, 256, 512), (1000, 20, 256, 512), (777, 33, 64, 16),
+    (600, 12, 128, 128)])
+def test_banded_kernel_matches_plain(n, s, row_tile, window, dtype):
+    need_cuda()
+    a = _banded_matrix(n, 8, max(window // 3, 4), seed=n + s)
+    g = banded_ops.banded_from_scipy(
+        a, row_tile=row_tile, window=window, device="cuda",
+        dtype=np.float64 if dtype == torch.float64 else np.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    x = torch.rand((n, s), generator=gen, device="cuda", dtype=dtype)
+    before = _build.launch_counts().get(banded_ops.KERNEL, 0)
+    y = banded_ops.banded_inband(g, x)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[banded_ops.KERNEL] == before + 1
+    ref = banded_ops.banded_spmm_plain(g.lidx, g.weights, g.slab_starts, x,
+                                       g.row_tile, g.slab_rows)
+    assert y.shape == ref.shape == (g.lidx.shape[0], s) and y.dtype == dtype
+    assert float((y - ref).abs().max()) \
+        <= BANDED_RTOL[dtype] * float(ref.abs().max())
+    # the whole product (in-band kernel + spill gather + COO tail)
+    full = banded_ops.banded_spmm(g, x)
+    want = torch.as_tensor(a @ x.double().cpu().numpy(), device="cuda")
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((full.double() - want).abs().max()) \
+        <= tol * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_banded_kernel_rejects_what_it_cannot_take():
+    need_cuda()
+    a = _banded_matrix(600, 6, 20, seed=1)
+    g = banded_ops.banded_from_scipy(a, device="cuda", dtype=np.float32)
+    x = torch.rand((600, 4), device="cuda")
+    with pytest.raises(TypeError, match="float32 or float64"):
+        banded_ops.banded_inband(g, x.double())
+    with pytest.raises(ValueError, match="is on"):
+        banded_ops.banded_inband(g, x.cpu())
+    # a slab of which not one column fits a block's shared memory
+    huge = banded_ops.banded_from_scipy(a, row_tile=256, window=40_000,
+                                        device="cuda", dtype=np.float64)
+    with pytest.raises(ValueError, match="does not fit"):
+        banded_ops.banded_inband(huge, x.double())
+
+
+@pytest.mark.gpu
+def test_nam_under_banded_on_the_card_goes_through_the_kernel():
+    need_cuda()
+    try:
+        ct.config.set_device("cuda")
+        ct.config.enable_x64(False)
+        d, samplem = ct.data.synthetic_dataset(
+            n_samples=20, cells_per_sample=1500, n_genes=20, seed=2,
+            structure="manifold")
+        ct.pp.pca(d, n_comps=10)
+        ct.pp.neighbors(d, n_neighbors=15)
+        ct.tl.set_graph_format(d, "ell")
+        nam_ell, keep_ell = ct.tl.nam(d, "id", nsteps=3)
+        ct.tl.set_graph_format(d, "banded")
+        ct.ops.reset_launch_counts()
+        nam_b, keep_b = ct.tl.nam(d, "id", nsteps=3)
+        assert ct.ops.launch_counts() == {banded_ops.KERNEL: 3}
+        assert (keep_b == keep_ell).all()
+        err = np.abs(nam_b.to_numpy() - nam_ell.to_numpy()).max()
+        assert err <= 1e-4 * np.abs(nam_ell.to_numpy()).max()
+        for fmt in ("block", "hybrid"):
+            ct.tl.set_graph_format(d, fmt)
+            nam_f, _ = ct.tl.nam(d, "id", nsteps=3)
+            err = np.abs(nam_f.to_numpy() - nam_ell.to_numpy()).max()
+            assert err <= 1e-4 * np.abs(nam_ell.to_numpy()).max()
+        ct.tl.set_graph_format(d, "banded")
+        p = ct.tl.association(d, samplem["case"].astype(float), "id",
+                              Nnull=200, seed=0)
+        assert 0 < p <= 1
     finally:
         ct.config.set_device("cpu")
         ct.config.enable_x64(True)

@@ -27,7 +27,10 @@ PKG = ROOT / "cna_tpu_torch"
 def test_import_pulls_in_neither_jax_nor_cna_tpu():
     code = ("import sys, cna_tpu_torch, cna_tpu_torch.ops.knn, "
             "cna_tpu_torch.ops.ivf, cna_tpu_torch.pp.ivf_fine, "
-            "cna_tpu_torch.graph.device; "
+            "cna_tpu_torch.graph.device, cna_tpu_torch.graph.blocks, "
+            "cna_tpu_torch.ops.spmm_banded, cna_tpu_torch.tools._stats, "
+            "cna_tpu_torch.utils.checkpoint, "
+            "cna_tpu_torch.utils.multisample; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cna_tpu' "
             "or m.startswith('cna_tpu.')]; "
@@ -59,8 +62,13 @@ def test_namespace_mirrors_the_tpu_package():
                  "fuzzy_connectivities"):
         assert callable(getattr(ct.pp, name)), name
     for name in ("graph_from_numpy", "sorted_ext_graph_from_numpy",
-                 "fine_index_from_numpy"):
+                 "fine_index_from_numpy", "banded_graph_from_numpy",
+                 "block_graph_from_numpy", "hybrid_graph_from_numpy",
+                 "obs_to_sample"):
         assert callable(getattr(ct.ut, name)), name
+    for name in ("conditional_permutation", "grouplevel_permutation",
+                 "tail_counts", "empirical_fdrs"):
+        assert callable(getattr(ct.tl._stats, name)), name
     assert ct.association is ct.tl.association
 
 
@@ -136,21 +144,48 @@ def _demo():
 
 
 def test_unported_paths_raise_not_implemented():
+    """What still waits raises NotImplementedError naming its ROADMAP
+    item (several devices); an unknown format is a ValueError."""
     d, y = _demo()
-    for fmt in ("block", "hybrid", "banded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ct.tl.set_graph_format(d, fmt)
     with pytest.raises(ValueError, match="unknown graph format"):
         ct.tl.set_graph_format(d, "csr")
     with pytest.raises(NotImplementedError, match="mesh"):
         ct.tl.association(d, y, "sample", mesh=object())
-    with pytest.raises(NotImplementedError, match="nam_savepoint"):
-        ct.tl.association(d, y, "sample", nam_savepoint="nam.npz")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        ct.tools._nam.nam_arrays(d, "sample", mesh=object())
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         ct.pp.ivf_knn(d.obsm["X_pca"], 5, devices=["cuda:0", "cuda:1"])
-    sparse = ct.CellData(X=sp.random(50, 8, density=0.3, format="csr"))
-    with pytest.raises(NotImplementedError, match="sparse"):
-        ct.pp.pca(sparse)
+
+
+@pytest.mark.parametrize("fmt", ["block", "hybrid", "banded"])
+def test_locality_formats_run_end_to_end(fmt):
+    d, y = _demo()
+    p_default = ct.tl.association(d, y, "sample", Nnull=50, seed=1)
+    ct.tl.set_graph_format(d, fmt)
+    assert d.uns[ct.tools._nam._FORMAT_KEY] == fmt
+    p_fmt = ct.tl.association(d, y, "sample", Nnull=50, seed=1)
+    assert p_fmt == p_default  # same graph, same permutations
+    graph, order = ct.tools._nam.get_device_graph(d)
+    assert type(graph).__name__ == {"block": "BlockGraph",
+                                    "hybrid": "HybridGraph",
+                                    "banded": "BandedGraph"}[fmt]
+    assert sorted(order.perm) == list(range(d.n_obs))
+
+
+def test_nam_savepoint_and_sparse_pca_work(tmp_path):
+    d, y = _demo()
+    path = tmp_path / "nam.npz"
+    p_plain = ct.tl.association(d, y, "sample", Nnull=50, seed=1)
+    p_saved = ct.tl.association(d, y, "sample", Nnull=50, seed=1,
+                                nam_savepoint=str(path))
+    assert path.exists() and p_saved == p_plain
+    assert ct.tl.association(d, y, "sample", Nnull=50, seed=1,
+                             nam_savepoint=str(path)) == p_plain
+    sparse = ct.CellData(X=sp.random(50, 8, density=0.3, format="csr",
+                                     random_state=0))
+    scores = ct.pp.pca(sparse, n_comps=3)
+    assert scores.shape == (50, 3) and np.isfinite(scores).all()
+    assert sp.issparse(sparse.X)
 
 
 def test_ivf_neighbors_run_end_to_end():
