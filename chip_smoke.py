@@ -10,8 +10,11 @@ Phases, each of which must pass (any failure exits non-zero):
    ``cna_tpu_torch/csrc`` into ``cna_tpu_torch/_build`` (one ``nvcc`` per
    source, started together);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   its main path's shape and at extra shapes; timed with CUDA events
-   beside its bound and a PyTorch library yardstick;
+   its main path's shape and at extra shapes (for the scoring kernel also
+   inputs that attack its TF32 candidate filter: a large common offset,
+   duplicated points, a block of identical rows; for the banded kernel
+   rows that are all full and counts from 0 to K within a warp); timed with CUDA events beside its bound and a PyTorch library
+   yardstick;
 4. the 100,000-cell path: synthetic data (50 samples x 2,000 cells x 50
    genes) -> ``pp.pca`` -> ``pp.neighbors`` (the exact kNN kernel, the
    device-resident graph) -> ``tl.association`` with 1,000 permutations;
@@ -59,12 +62,22 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM peaks (data sheet, 700 W): float32 outside the
-# tensor cores, and HBM3 bandwidth
+# tensor cores, dense TF32 on them, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# MMA passes the scoring kernel spends on a distance tile (1: operands
+# centred on the query block's centroid, one TF32 product; 3 would be the
+# hi/lo split)
+IVF_MMA_PASSES = 1
 
 KNN_CASES = [(100_000, 20, 15), (1_037, 7, 5), (20_011, 50, 64)]
 DIST_ATOL = 1e-3  # float32 squared distances summed in different orders
+# the scoring kernel's sorted distances against the plain version's, rank by
+# rank, relative to the row's k-th distance (both are direct float32 sums of
+# (q - x)^2; the plain version goes through a square root): holds at any
+# scale of the data, where DIST_ATOL is blind below 1e-3
+IVF_RANK_RTOL = 1e-4
 # the scoring kernel at the 1M-cell index is held to its plain version on
 # every IVF_SHARE-th slot (the plain version's direct-difference distance
 # tiles take minutes over all slots); the kernel alone is also timed over
@@ -243,8 +256,15 @@ def check_ivf_case(label, x4, sel, probes, counts, csum, k, g, q_blocks,
     from cna_tpu_torch.ops import ivf
 
     args = (x4, sel, probes, counts, csum, k)
-    negd, idx = ivf.score_blocks(*args, g=g, q_blocks=q_blocks)
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    negd, idx = ivf.score_blocks(*args, g=g, q_blocks=q_blocks, stats=stats)
     torch.cuda.synchronize()
+    n_exact, n_pairs = (int(v) for v in stats.cpu())
+    again = ivf.score_blocks(*args, g=g, q_blocks=q_blocks)
+    if not (torch.equal(again[0], negd) and torch.equal(again[1], idx)):
+        raise AssertionError(f"ivf_score {label}: two runs on the same "
+                             "input differ")
+    del again
     p_negd, p_idx = ivf.score_blocks_plain(*args, g=g, q_blocks=q_blocks)
     torch.cuda.synchronize()
     ns, mq, _ = negd.shape
@@ -256,6 +276,13 @@ def check_ivf_case(label, x4, sel, probes, counts, csum, k, g, q_blocks,
     live = (within[None, None, :]
             < counts[qblk].long()[:, :, None]).reshape(ns, mq)
     found, p_found = torch.isfinite(negd), torch.isfinite(p_negd)
+    self_blocks = (probes.long()[:, None, :] == qblk[:, :, None]).any(-1)
+    self_rows = (self_blocks[:, :, None] & live.reshape(ns, q_blocks, g)
+                 ).reshape(ns, mq)
+    if bool((negd[..., 0][self_rows] != 0).any()):
+        raise AssertionError(f"ivf_score {label}: a row that probes its own "
+                             "block is not at distance exactly 0 from "
+                             "itself")
     if not bool((found == p_found).all()):
         raise AssertionError(f"ivf_score {label}: the kernel and the plain "
                              "version disagree on which entries exist")
@@ -273,6 +300,14 @@ def check_ivf_case(label, x4, sel, probes, counts, csum, k, g, q_blocks,
     if err > DIST_ATOL:
         raise AssertionError(f"ivf_score {label}: sorted distances differ "
                              f"from the plain version by {err}")
+    row_scale = dp.amax(-1, keepdim=True)
+    rank_err = float(torch.where(row_scale > 0,
+                                 (dk - dp).abs() / row_scale.clamp(min=1e-30),
+                                 (dk - dp).abs()).max())
+    if rank_err > IVF_RANK_RTOL:
+        raise AssertionError(f"ivf_score {label}: sorted distances differ "
+                             f"from the plain version by {rank_err} of the "
+                             "row's k-th distance")
     # the ids must carry the distances reported for them: compact id ->
     # layout row, then the distance recomputed from the layout
     total = int(counts.sum())
@@ -304,8 +339,12 @@ def check_ivf_case(label, x4, sel, probes, counts, csum, k, g, q_blocks,
     rec = dict(label=label, slots=ns, f_pad=f_pad, g=g, d_pad=d_pad,
                q_blocks=q_blocks, probes=int(probes.shape[1]), k=k,
                live_rows=int(live.sum()), max_abs_err=abs_err,
-               max_rel_err=err, recall=recall,
-               same_id_share=float((same | ~found).float().mean()))
+               max_rel_err=err, max_rank_err=rank_err, recall=recall,
+               same_id_share=float((same | ~found).float().mean()),
+               # candidates whose exact float32 distance the kernel
+               # computed, of the live (row, candidate) pairs it met
+               exact_candidates=n_exact, pairs=n_pairs,
+               exact_share=n_exact / max(n_pairs, 1))
     if timed:
         rec["ms"] = cuda_ms(
             lambda: ivf.score_blocks(*args, g=g, q_blocks=q_blocks), 3)
@@ -319,9 +358,12 @@ def check_ivf_case(label, x4, sel, probes, counts, csum, k, g, q_blocks,
 
 def ivf_bound(x4, sel, probes, counts, k, g, q_blocks):
     """The least time the card could take for this input: the operations
-    its live rows and live candidates need (2 * rows * candidates * d flop
-    in float32) against its bytes (every input read once, every output
-    written once)."""
+    its live rows and live candidates need (2 * rows * candidates * d flop)
+    at the card's peak for the type the kernel runs them in, dense TF32 on
+    the tensor cores, times the MMA passes the design spends on them,
+    against its bytes (every input read once, every output written once).
+    ``fp32_bound_ms`` keeps the figure the kernel's row had while it ran on
+    the CUDA cores: the same operations at the float32 peak."""
     import torch
 
     f_pad, _, d_pad = x4.shape
@@ -336,9 +378,12 @@ def ivf_bound(x4, sel, probes, counts, k, g, q_blocks):
                                         + 2 * counts.numel())
               + 8.0 * ns * q_blocks * g * k)
     probed_bytes = 4.0 * d_pad * float(cands.sum()) * q_blocks
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops = IVF_MMA_PASSES * flops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                mma_passes=IVF_MMA_PASSES,
+                fp32_bound_ms=1e3 * max(flops / PEAK_FP32_FLOPS, t_bytes),
                 probed_block_bytes_ms=1e3 * probed_bytes / PEAK_BYTES_PER_S)
 
 
@@ -371,6 +416,78 @@ def ivf_odd_cases():
     return recs
 
 
+def ivf_attack_cases():
+    """Inputs chosen against the TF32 candidate filter, each held to the
+    plain version like any other case: coordinates with a common offset
+    1,000 times the spread (norms a thousand times the neighbour
+    distances), with and without locality of the blocks; every point
+    present several times (ties at every rank, keys that differ only by
+    rounding); blocks of identical rows; and tiny spreads around a large
+    offset, where float32 itself resolves few digits."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    recs = []
+
+    def probes_for(f_pad, n_live, ns, width):
+        # every slot probes itself first, then random live blocks
+        own = torch.arange(ns, device="cuda")[:, None]
+        rest = torch.stack([torch.randperm(n_live, generator=gen,
+                                           device="cuda")[:width - 1]
+                            for _ in range(ns)])
+        return torch.cat([own, rest], 1).to(torch.int32)
+
+    d, g, f_pad, n_dummy = 20, 128, 64, 4
+    n_live = f_pad - n_dummy
+    sel = torch.arange(24, device="cuda", dtype=torch.int32)
+    for label, offset, spread, k in (
+            ("offset 1e3 x spread", 1000.0, 1.0, 15),
+            ("offset 1e3, spread 1e-3", 1000.0, 1e-3, 15),
+            ("offset 1e3 x spread, k=128", 1000.0, 1.0, 128)):
+        x4, counts, csum = random_layout(f_pad, g, d, seed=31, n_dummy=n_dummy,
+                                         min_count=40)
+        x4[:, :, :d] = x4[:, :, :d] * spread + offset
+        recs.append(check_ivf_case(label, x4, sel,
+                                   probes_for(f_pad, n_live, 24, 32), counts,
+                                   csum, k, g, 1, timed=False))
+    # local blocks around far-apart centres: what centring is for
+    x4, counts, csum = random_layout(f_pad, g, d, seed=32, n_dummy=n_dummy,
+                                     min_count=40)
+    centres = 500.0 * torch.randn(f_pad, 1, d, generator=gen, device="cuda")
+    x4[:, :, :d] = x4[:, :, :d] + centres
+    recs.append(check_ivf_case("local blocks, far centres", x4, sel,
+                               probes_for(f_pad, n_live, 24, 32), counts,
+                               csum, 15, g, 1, timed=False))
+    # every point four times, spread over the blocks
+    x4, counts, csum = random_layout(f_pad, g, d, seed=33, n_dummy=n_dummy,
+                                     min_count=g)
+    flat = x4.reshape(-1, x4.shape[2])
+    quarter = flat.shape[0] // 4
+    perm = torch.randperm(flat.shape[0], generator=gen, device="cuda")
+    for rep in range(1, 4):
+        flat[perm[rep * quarter:(rep + 1) * quarter]] = flat[perm[:quarter]]
+    recs.append(check_ivf_case("every point four times", x4, sel,
+                               probes_for(f_pad, n_live, 24, 32), counts,
+                               csum, 15, g, 1, timed=False))
+    # blocks of identical rows (block 0 probed by everyone, block 1 its
+    # own copy of the same point, block 2 another point)
+    x4, counts, csum = random_layout(f_pad, g, d, seed=34, n_dummy=n_dummy,
+                                     min_count=40)
+    x4[0] = x4[0, :1]
+    x4[1] = x4[0, :1]
+    x4[2] = x4[2, :1]
+    probes = probes_for(f_pad, n_live, 24, 32)
+    probes[:, 1] = 0
+    probes[:, 2] = 1
+    probes[:, 3] = 2
+    for k in (1, 15, 64):
+        recs.append(check_ivf_case(f"identical blocks, k={k}", x4, sel,
+                                   probes, counts, csum, k, g, 1,
+                                   timed=False))
+    return recs
+
+
 def check_ivf_main_shape(scores_dev, u, k):
     """The scoring kernel on the 1M-cell path's own index (rebuilt from
     the same PCA scores and seed, so the same layout) at the calibrated
@@ -393,10 +510,15 @@ def check_ivf_main_shape(scores_dev, u, k):
         index.blk_csum_dev, k, index.g, index.q_blocks, timed=True)
     args = (index.x4, sel_all, table, index.blk_counts_dev,
             index.blk_csum_dev, k)
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    ivf.score_blocks(*args, g=index.g, q_blocks=index.q_blocks, stats=stats)
+    n_exact, n_pairs = (int(v) for v in stats.cpu())
     rec["all_slots"] = dict(
         slots=int(sel_all.shape[0]), f_real=index.f_real,
         ms=cuda_ms(lambda: ivf.score_blocks(*args, g=index.g,
                                             q_blocks=index.q_blocks), 3),
+        exact_candidates=n_exact, pairs=n_pairs,
+        exact_share=n_exact / max(n_pairs, 1),
         **ivf_bound(index.x4, sel_all, table, index.blk_counts_dev, k,
                     index.g, index.q_blocks))
     return rec
@@ -698,19 +820,22 @@ def check_banded_case(label, graph, x):
 
     from cna_tpu_torch.ops import spmm_banded as sb
 
-    y = sb.banded_inband(graph, x)
-    torch.cuda.synchronize()
     ref = sb.banded_spmm_plain(graph.lidx, graph.weights, graph.slab_starts,
                                x, graph.row_tile, graph.slab_rows)
+    torch.cuda.synchronize()
+    dtype = str(x.dtype).replace("torch.", "")
+    scale = float(ref.abs().max())
+    y = sb.banded_inband(graph, x)
     torch.cuda.synchronize()
     if y.shape != (graph.lidx.shape[0], x.shape[1]) or y.dtype != x.dtype:
         raise AssertionError(f"banded_spmm {label}: output {tuple(y.shape)} "
                              f"{y.dtype}")
     if not bool(torch.isfinite(y).all()):
         raise AssertionError(f"banded_spmm {label}: non-finite output")
-    dtype = str(x.dtype).replace("torch.", "")
+    if not torch.equal(y, sb.banded_inband(graph, x)):
+        raise AssertionError(f"banded_spmm {label}: two runs on the same "
+                             "input differ")
     err = float((y - ref).abs().max())
-    scale = float(ref.abs().max())
     rel = err / scale if scale > 0 else err
     if rel > BANDED_RTOL[dtype]:
         raise AssertionError(f"banded_spmm {label}: differs from the plain "
@@ -787,6 +912,30 @@ def banded_odd_cases(dev="cuda"):
             window=16, dtype=dtype, device=dev)
         recs.append(check_banded_case("row_tile=64 window=16", g64,
                                       state(g64, 33)))
+        # every slot in band (no empty slot to skip), and non-zero counts
+        # that run from 0 to K within every 32 rows
+        n, k, tile, window = 1024, 12, 256, 128
+        rs = np.random.RandomState(6)
+        starts = np.clip(np.arange(n // tile) * tile - window, 0,
+                         n - (tile + 2 * window)).astype(np.int32)
+        lidx = rs.randint(0, tile + 2 * window, (n, k)).astype(np.int32)
+        w = (rs.rand(n, k) * 0.9 + 0.1).astype(dtype)
+        keep = np.arange(k)[None, :] < (np.arange(n) % (k + 1))[:, None]
+        scattered = np.take_along_axis(
+            keep, np.argsort(rs.rand(n, k), axis=1), axis=1)
+        for label, mask in (("all rows full", np.ones((n, k), bool)),
+                            ("counts 0..K within a warp", scattered)):
+            gr = sb.banded_from_arrays(
+                np.where(mask, lidx, 0), np.where(mask, w, 0).astype(dtype),
+                starts, np.zeros((n, 0), np.int32), np.zeros((n, 0), dtype),
+                np.zeros(0, np.int32), np.zeros(0, np.int32),
+                np.zeros(0, dtype), np.zeros(n, dtype), n, tile,
+                tile + 2 * window, device=dev)
+            nnz = gr.compact.row_nnz.cpu().numpy()
+            if not np.array_equal(nnz, mask.sum(1)):
+                raise AssertionError(f"{label}: row_nnz is not the number "
+                                     "of non-zero slots")
+            recs.append(check_banded_case(label, gr, state(gr, 50)))
     return recs
 
 
@@ -807,24 +956,46 @@ def banded_library_csr(graph, n):
 
 
 def banded_bound(graph, n, s):
-    """The least time the card could take for the in-band product: its
-    bytes, each of lidx, w, slab_starts and x read once and y written
-    once, at the card's memory rate (2 flop per slot and column are far
-    below the float32 rate).  Also the figure with every tile reading its
-    whole slab of x."""
+    """The least time the card could take for the in-band product: the
+    bytes the work needs, an index and a weight per in-band EDGE, x read
+    once and y written once, at the card's memory rate (2 flop per edge
+    and column are far below the float32 rate).  Also, under their own
+    keys, the figure that counts every padded slot of the packed arrays
+    (what the first kernel was held to), and that figure with every tile
+    reading its whole slab of x."""
     n_pad, k = graph.lidx.shape
     item = graph.weights.element_size()
-    slots = float(n_pad) * k
-    nbytes = (slots * (4 + item) + 4.0 * graph.slab_starts.numel()
-              + item * float(s) * (n + n_pad))
-    flops = 2.0 * slots * s
-    x_bytes = item * float(s) * n
-    slab_bytes = nbytes + x_bytes * (graph.slab_rows / graph.row_tile - 1)
+    edges = float(graph.compact.row_nnz.sum())
+    state_bytes = item * float(s) * (n + n_pad)
+    nbytes = edges * (4 + item) + state_bytes
+    flops = 2.0 * edges * s
+    slot_bytes = (float(n_pad) * k * (4 + item)
+                  + 4.0 * graph.slab_starts.numel() + state_bytes)
+    slab_bytes = slot_bytes + item * float(s) * n * (
+        graph.slab_rows / graph.row_tile - 1)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return dict(flops=flops, bytes=nbytes,
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                all_slots_bound_ms=1e3 * slot_bytes / PEAK_BYTES_PER_S,
                 whole_slab_bytes_ms=1e3 * slab_bytes / PEAK_BYTES_PER_S)
+
+
+def banded_referenced_rows(graph):
+    """Per row tile, the span of slab rows its in-band edges refer to:
+    (largest span, mean span) in rows: what a kernel that staged only the
+    referenced range of a slab in shared memory, at full S, would have to
+    hold there."""
+    import torch
+
+    n_pad, k = graph.lidx.shape
+    tiles = n_pad // graph.row_tile
+    live = (graph.weights != 0).reshape(tiles, -1)
+    li = graph.lidx.reshape(tiles, -1)
+    lo = torch.where(live, li, graph.slab_rows).amin(1)
+    hi = torch.where(live, li, -1).amax(1)
+    span = (hi - lo + 1).clamp(min=0).float()
+    return float(span.max()), float(span.mean())
 
 
 def pack_phases(prof, first):
@@ -977,7 +1148,12 @@ def banded_path(ct, dev="cuda", cells_per_sample=20_000):
         raise AssertionError("torch.sparse.mm of the in-band edges differs "
                              f"from the kernel by {lib_err}")
     del lib_y
-    krec["ms"] = cuda_ms(lambda: sb.banded_inband(graph, x), 10)
+    krec["ms"] = cuda_ms(lambda: sb.banded_inband(graph, x), 20)
+    span_max, span_mean = banded_referenced_rows(graph)
+    krec["referenced_slab_rows"] = dict(
+        max=span_max, mean=span_mean,
+        max_bytes_at_full_s=span_max * s * x.element_size())
+    krec["compact_slots"] = int(graph.compact.lidx.shape[0])
     krec["plain_ms"] = cuda_ms(lambda: sb.banded_spmm_plain(
         graph.lidx, graph.weights, graph.slab_starts, x, graph.row_tile,
         graph.slab_rows), 3)
@@ -1046,6 +1222,7 @@ def main() -> int:
               f"({exc})", file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = card_line()
     log(f"card: {kind}; nvidia-smi: {smi}; torch {torch.__version__}, "
@@ -1059,12 +1236,17 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "stack frame" in line:
                 log(f"  ptxas {name}:", line.strip())
+    hmma = _build.sass_count(ivf.KERNEL, "HMMA")
+    log(f"build: {hmma} HMMA (tensor-core) opcodes in ivf_score's SASS")
+    if hmma < 1:
+        raise AssertionError("ivf_score was built without tensor-core "
+                             "opcodes")
 
     cases = [check_knn_case(n, d, k, seed=i, timed=(i == 0))
              for i, (n, d, k) in enumerate(KNN_CASES)]
     for rec in cases:
         log("knn_exact vs plain:", json.dumps(rec))
-    ivf_cases = ivf_odd_cases()
+    ivf_cases = ivf_odd_cases() + ivf_attack_cases()
     for rec in ivf_cases:
         log("ivf_score vs plain:", json.dumps(rec))
     banded_cases = banded_odd_cases()
@@ -1134,6 +1316,15 @@ def main() -> int:
                    "k")},
         "slot_share": f"1/{IVF_SHARE}",
         "all_slots": ivf_main["all_slots"],
+        # the bound is the tensor cores' (dense TF32); the same operations
+        # at the float32 peak outside them, which was this row's bound
+        # while the kernel ran there, is kept beside it; and what the
+        # filter let through to the exact float32 path
+        "fp32_bound_ms": ivf_main["fp32_bound_ms"],
+        "mma_passes": ivf_main["mma_passes"],
+        "exact_share": ivf_main["exact_share"],
+        "same_id_share": ivf_main["same_id_share"],
+        "hmma_opcodes": hmma,
     }, {
         # the in-band product at the 1M-cell manifold graph's own shape;
         # the library yardstick is torch.sparse.mm of the in-band edges
@@ -1149,11 +1340,16 @@ def main() -> int:
         "bound_ms": banded_main["bound_ms"],
         "bound_by": banded_main["bound_by"],
         "library_ms": banded_main["library_ms"],
+        # the bound counts the bytes of the in-band edges; the figure that
+        # counts every padded slot is kept beside it
+        "all_slots_bound_ms": banded_main["all_slots_bound_ms"],
         "whole_slab_bytes_ms": banded_main["whole_slab_bytes_ms"],
         "shape": {key: banded_main[key] for key in
                   ("n", "n_pad", "k", "s", "row_tile", "slab_rows",
-                   "in_band_edges")},
+                   "in_band_edges", "compact_slots")},
     }]
+    log(f"whole script: {time.perf_counter() - t_start:.1f} s, the kernels' "
+        "build included")
     if smi:
         log(smi)
     log(json.dumps({"kernels": kernels}))

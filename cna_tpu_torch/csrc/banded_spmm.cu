@@ -1,47 +1,58 @@
 // Banded SpMM on Hopper (sm_90a): the in-band part of y = A @ x for a
-// locality-ordered graph, gathered out of a slab of x staged in shared memory.
+// locality-ordered graph, one pass over the in-band edges.
 //
 // Replaces the TPU package's Pallas kernel `_banded_kernel`
 // (cna_tpu/ops/spmm_pallas.py:216, launched by `_banded_spmm_padded` at :242)
-// and keeps its contract.  Rows come in tiles of R; tile t reads only the
+// and keeps its contract.  Rows come in tiles of R; tile t refers to the
 // `slab` = R + 2W consecutive rows of x that start at starts[t].  For every
 // padded row r of tile t and every column c
 //
 //     y[r, c] = sum_j w[r, j] * x[starts[t] + lidx[r, j], c]
 //
-// with lidx (n_pad, K) int32 local to the tile's slab and w (n_pad, K) zero
-// on padding and out-of-band slots.  Accumulation is in the state's own type
-// at full precision (float32 by fmaf, float64 for a float64 state): no TF32,
-// no bf16.  Out-of-band edges (the spill ELL and the COO tail) are applied
-// outside this kernel.
+// over the slots j of row r whose weight is not 0.  The packed (n_pad, K)
+// arrays of the graph keep an in-band edge at its ELL position and zero the
+// rest, so on a real graph most slots are empty (17% hold an edge on the
+// 1,000,000-cell manifold graph).  The kernel reads a derived form built
+// once per graph (ops/spmm_banded.py:compact_inband): the non-zero
+// slots of each row moved together in their original order, each row's run
+// padded with (index 0, weight 0) slots to a multiple of 4 so that it is read
+// in 16-byte loads, and a row pointer row_ptr (n_pad + 1,) in slots.  A
+// skipped slot contributed an exact 0, so the sum is the packed form's.
+// Accumulation is in the state's own type at full precision (float32 by fmaf,
+// float64 for a float64 state): no TF32, no bf16.  Slab rows at or beyond
+// n_x read as zeros; x is never padded or copied.  Out-of-band edges (the
+// spill ELL and the COO tail) are applied outside this kernel.
 //
 // What the TPU kernel needed and this one does not: K one-hot
 // (R x slab) @ (slab x S) matrix products standing in for a gather, S padded
-// to 128 lanes, x padded to max(n_pad, slab) rows (the slab copy is
-// bounds-checked here instead: rows at or beyond n_x are staged as zeros).
+// to 128 lanes, x padded to max(n_pad, slab) rows.
 //
-// What bounds it on this card: bytes.  Each of lidx, w, x and y crosses the
-// memory bus once (2 flop per 8-byte (lidx, w) slot and per gathered
-// element).  A tile's slab is (R + 2W) / R times its own rows, so
-// neighbouring tiles read the same rows of x again; those re-reads are
-// served by the L2 cache when the tiles run at about the same time.
+// What bounds it on this card: bytes.  The least traffic is 8 bytes (12 in
+// float64) per in-band edge, x read once and y written once: 476 MB on the
+// 1,000,000-cell manifold graph at S = 50, 0.142 ms at 3.35 TB/s (the figure
+// that counts every padded slot, 848 MB = 0.253 ms, is what the first kernel
+// was held to).  2 flop per edge and column are far below the float32 rate.
 //
-// Design (first, simple version):
-//   * grid (tiles, column chunks): a block owns one row tile and s_chunk
-//     consecutive columns; the wrapper picks s_chunk so that the
-//     slab x s_chunk stage fits the shared memory a block may opt into (at
-//     R = 256, W = 512 and float32 that is at most 45 columns), and where
-//     it can, half of that, so that two blocks share an SM and one's slab
-//     copy overlaps the other's gather; every chunk reads lidx and w again;
-//   * the slab is copied row by row, neighbouring threads on neighbouring
-//     columns of a row (coalesced within each row's chunk);
-//   * outputs are dealt to threads column-fastest, so the threads of a warp
-//     that share a row read one slab row at consecutive addresses (no bank
-//     conflict), and lidx / w are read as broadcasts; a warp that spans
-//     several rows (s_chunk < 32) can hit the same bank in different slab
-//     rows;
-//   * lidx and w are read four slots at a time (16-byte loads) when K is a
-//     multiple of 4, which every graph packed by this package is.
+// Design: a gather, no slab staged.  A thread owns one row and V consecutive
+// columns (V = 4, 2 or 1 by the divisibility of S and the alignment of x),
+// walks its row's run of slots once (16-byte loads, the same address across
+// the threads of a row: a broadcast) and reads each neighbour's row of x
+// straight from global memory; neighbouring threads read neighbouring
+// columns, so a neighbour's S columns come as one or two coalesced requests.
+// The band keeps a tile's working set (at most slab x S elements, 256 KB in
+// float32 at S = 50) in the L1 and L2 caches: each row of x crosses the
+// memory bus about once.  Every slot is read once, whatever S is: there are
+// no column chunks, and no slab length is too long.
+//
+// What was measured beside it on the 1,000,000-cell manifold graph (S = 50,
+// float32, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): this design 0.48 ms;
+// the first kernel's design on the same compacted slots (a block stages
+// slab x s_chunk elements of x in shared memory; 1,280 rows x 50 columns
+// exceed the 232,448 bytes a block may use, so 3 column chunks, each reading
+// the tile's slots again) 1.00 ms; the first kernel itself, every padded
+// slot, 1.97 ms; torch.sparse.mm of the same edges 0.83 ms.  Staging only the
+// slab rows a tile's edges really refer to, at full S, does not fit either:
+// the tiles refer to 1,161 of their 1,280 slab rows on average.
 
 #include <cuda_runtime.h>
 
@@ -49,7 +60,7 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
+constexpr int kGatherThreads = 256;
 
 template <typename T>
 struct Vec4;
@@ -75,6 +86,12 @@ struct Vec4<double> {
   }
 };
 
+// V consecutive elements of a row, loaded and stored as one request
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
 __device__ inline float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
 }
@@ -82,119 +99,94 @@ __device__ inline double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-banded_spmm_kernel(const int* __restrict__ lidx, const T* __restrict__ w,
-                   const int* __restrict__ starts, const T* __restrict__ x,
-                   T* __restrict__ y, int row_tile, int slab_rows, int k,
-                   int n_x_rows, int s, int s_chunk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* slab = reinterpret_cast<T*>(smem_raw);
-
-  const int tile = blockIdx.x;
-  const int c0 = blockIdx.y * s_chunk;
-  const int sc = min(s_chunk, s - c0);  // columns of this chunk
-  const int start = starts[tile];
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-
-  // stage x[start : start + slab_rows, c0 : c0 + sc]; rows beyond x are 0
-  const int n_stage = slab_rows * sc;
-  for (int e = tid; e < n_stage; e += nthreads) {
-    const int row = e / sc;
-    const int col = e - row * sc;
-    const int src = start + row;
-    slab[e] = src < n_x_rows
-                  ? x[static_cast<size_t>(src) * s + c0 + col]
-                  : T(0);
-  }
-  __syncthreads();
-
-  const size_t row0 = static_cast<size_t>(tile) * row_tile;
-  const int n_out = row_tile * sc;
-  const bool vec = (k & 3) == 0;
-  for (int o = tid; o < n_out; o += nthreads) {
-    const int r = o / sc;
-    const int c = o - r * sc;
-    const int* li = lidx + (row0 + r) * static_cast<size_t>(k);
-    const T* wr = w + (row0 + r) * static_cast<size_t>(k);
-    const T* col = slab + c;
-    T acc = T(0);
-    if (vec) {
-      for (int j = 0; j < k; j += 4) {
-        const int4 l4 = *reinterpret_cast<const int4*>(li + j);
-        T w4[4];
-        Vec4<T>::load(wr + j, w4);
-        acc = fma_t(w4[0], col[l4.x * sc], acc);
-        acc = fma_t(w4[1], col[l4.y * sc], acc);
-        acc = fma_t(w4[2], col[l4.z * sc], acc);
-        acc = fma_t(w4[3], col[l4.w * sc], acc);
-      }
-    } else {
-      for (int j = 0; j < k; ++j) {
-        acc = fma_t(wr[j], col[li[j] * sc], acc);
+template <typename T, int V>
+__global__ void __launch_bounds__(kGatherThreads)
+banded_gather_kernel(const int* __restrict__ row_ptr,
+                     const int* __restrict__ cidx, const T* __restrict__ cw,
+                     const int* __restrict__ starts, const T* __restrict__ x,
+                     T* __restrict__ y, long long n_items, int row_tile,
+                     int n_x_rows, int s, int sv) {
+  const long long o =
+      static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x;
+  if (o >= n_items) return;
+  const int r = static_cast<int>(o / sv);
+  const int c = (static_cast<int>(o - static_cast<long long>(r) * sv)) * V;
+  const int start = starts[r / row_tile];
+  const int p1 = row_ptr[r + 1];
+  T acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = T(0);
+  for (int p = row_ptr[r]; p < p1; p += 4) {
+    const int4 l4 = *reinterpret_cast<const int4*>(cidx + p);
+    T w4[4];
+    Vec4<T>::load(cw + p, w4);
+    const int src[4] = {start + l4.x, start + l4.y, start + l4.z,
+                        start + l4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (src[u] < n_x_rows) {  // slab rows beyond x read as zeros
+        const Pack<T, V> xv = *reinterpret_cast<const Pack<T, V>*>(
+            x + static_cast<size_t>(src[u]) * s + c);
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = fma_t(w4[u], xv.v[v], acc[v]);
       }
     }
-    y[(row0 + r) * s + c0 + c] = acc;
   }
+  Pack<T, V> out;
+#pragma unroll
+  for (int v = 0; v < V; ++v) out.v[v] = acc[v];
+  *reinterpret_cast<Pack<T, V>*>(y + static_cast<size_t>(r) * s + c) = out;
 }
 
-template <typename T>
-cudaError_t launch(const int* lidx, const void* w, const int* starts,
-                   const void* x, void* y, int n_tiles, int row_tile,
-                   int slab_rows, int k, int n_x_rows, int s, int s_chunk,
-                   int threads, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(slab_rows) * s_chunk * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        banded_spmm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(n_tiles, (s + s_chunk - 1) / s_chunk);
-  banded_spmm_kernel<T><<<grid, threads, smem, stream>>>(
-      lidx, static_cast<const T*>(w), starts, static_cast<const T*>(x),
-      static_cast<T*>(y), row_tile, slab_rows, k, n_x_rows, s, s_chunk);
+template <typename T, int V>
+cudaError_t launch_gather(const int* row_ptr, const int* cidx, const void* cw,
+                          const int* starts, const void* x, void* y,
+                          long long n_pad, int row_tile, int n_x_rows, int s,
+                          cudaStream_t stream) {
+  const int sv = s / V;
+  const long long n_items = n_pad * sv;
+  const long long blocks = (n_items + kGatherThreads - 1) / kGatherThreads;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  banded_gather_kernel<T, V>
+      <<<static_cast<unsigned>(blocks), kGatherThreads, 0, stream>>>(
+          row_ptr, cidx, static_cast<const T*>(cw), starts,
+          static_cast<const T*>(x), static_cast<T*>(y), n_items, row_tile,
+          n_x_rows, s, sv);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int banded_spmm_max_threads() { return kMaxThreads; }
-
-// The dynamic shared memory (bytes) a block may opt into on `device`, or a
-// negative CUDA error code.
-extern "C" int banded_spmm_max_smem(int device) {
-  int bytes = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err == cudaSuccess ? bytes : -static_cast<int>(err);
-}
-
-// lidx (n_tiles * row_tile, k) int32, w the same shape, starts (n_tiles,)
-// int32, x (n_x_rows, s) and y (n_tiles * row_tile, s), all row-major on the
-// device; w, x and y float32 (is_double == 0) or float64.  s_chunk columns
-// to a block: slab_rows * s_chunk * sizeof(element) bytes of shared memory.
-// Launches on `stream` and returns cudaGetLastError() (0 on success); does
-// not synchronise.
-extern "C" int banded_spmm_launch(const int* lidx, const void* w,
-                                  const int* starts, const void* x, void* y,
-                                  int n_tiles, int row_tile, int slab_rows,
-                                  int k, int n_x_rows, int s, int s_chunk,
-                                  int is_double, int threads, void* stream) {
-  if (n_tiles < 1 || row_tile < 1 || slab_rows < 1 || k < 0 ||
-      n_x_rows < 1 || s < 1 || s_chunk < 1 || s_chunk > s || threads < 32 ||
-      threads > kMaxThreads || (s + s_chunk - 1) / s_chunk > 65535) {
+// row_ptr (n_tiles * row_tile + 1,) int32 in slots, every entry a multiple
+// of 4; cidx and cw (row_ptr[last],) the compacted
+// slab-local indices and weights, on 16-byte boundaries; starts (n_tiles,)
+// int32; x (n_x_rows, s) and y (n_tiles * row_tile, s) row-major on the
+// device; cw, x and y float32 (is_double == 0) or float64.  `vec` columns to
+// a thread (4, 2 or 1): s must be a multiple of it and x and y start on
+// vec * sizeof(element) boundaries.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success); does not synchronise.
+extern "C" int banded_spmm_launch(const int* row_ptr, const int* cidx,
+                                  const void* cw, const int* starts,
+                                  const void* x, void* y, int n_tiles,
+                                  int row_tile, int n_x_rows, int s, int vec,
+                                  int is_double, void* stream) {
+  if (n_tiles < 1 || row_tile < 1 || n_x_rows < 1 || s < 1 ||
+      (vec != 1 && vec != 2 && vec != 4) || s % vec != 0 ||
+      (is_double && vec == 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n_pad = static_cast<long long>(n_tiles) * row_tile;
+#define BANDED_GATHER(T, V)                                                 \
+  return static_cast<int>(launch_gather<T, V>(row_ptr, cidx, cw, starts, x, \
+                                              y, n_pad, row_tile, n_x_rows, \
+                                              s, st))
   if (is_double) {
-    return static_cast<int>(launch<double>(lidx, w, starts, x, y, n_tiles,
-                                           row_tile, slab_rows, k, n_x_rows,
-                                           s, s_chunk, threads, st));
+    if (vec == 2) BANDED_GATHER(double, 2);
+    BANDED_GATHER(double, 1);
   }
-  return static_cast<int>(launch<float>(lidx, w, starts, x, y, n_tiles,
-                                        row_tile, slab_rows, k, n_x_rows, s,
-                                        s_chunk, threads, st));
+  if (vec == 4) BANDED_GATHER(float, 4);
+  if (vec == 2) BANDED_GATHER(float, 2);
+  BANDED_GATHER(float, 1);
+#undef BANDED_GATHER
 }

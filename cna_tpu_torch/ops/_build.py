@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface (``extern "C"`` launchers
 that take device pointers and a stream) and compiles on its own into
 ``_build/lib<name>-<hash>.so`` for ``sm_90a``; the hash of the source
-names the library, so an edited source is rebuilt and an unchanged one
-is reused.  Building happens at first use, never at import: the CPU-only
-test environment has no ``nvcc``.
+(and of the headers of ``csrc/`` that it includes) names the library, so
+an edited source is rebuilt and an unchanged one is reused.  Building
+happens at first use, never at import: the CPU-only test environment has
+no ``nvcc``.
 
 Every kernel wrapper counts its launches here (``count_launch``), so a
 run can show that its main path went through the hand-written kernels.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -49,25 +51,49 @@ def reset_launch_counts() -> None:
     _LAUNCHES.clear()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(tool: str):
+    """Path of a CUDA toolkit program (PATH, then $CUDA_HOME/bin), or
+    None."""
+    found = shutil.which(tool)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
         or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError(
-        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the CUDA "
-        "kernels of cna_tpu_torch are compiled at first use and need the "
-        "CUDA toolkit")
+    cand = Path(home) / "bin" / tool
+    return str(cand) if cand.exists() else None
+
+
+def _nvcc() -> str:
+    found = _cuda_tool("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the "
+            "CUDA kernels of cna_tpu_torch are compiled at first use and "
+            "need the CUDA toolkit")
+    return found
+
+
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes with
+    quotes, directly or through another such header."""
+    found, queue = [], [CSRC / f"{name}.cu"]
+    while queue:
+        path = queue.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        queue += [CSRC / inc.decode()
+                  for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return found
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    parts = [p.read_bytes() for p in _sources(name)]
+    parts.append(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"\0".join(parts)).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -75,6 +101,24 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas register / shared-memory report) for ``name``."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many SASS lines of the built library of ``name`` carry
+    ``opcode`` (``cuobjdump -sass``; e.g. "HMMA", the tensor-core opcode
+    behind ``mma.sync``).  Raises RuntimeError where the
+    toolkit has no ``cuobjdump``."""
+    tool = _cuda_tool("cuobjdump")
+    if tool is None:
+        raise RuntimeError("cuobjdump not found (PATH, $CUDA_HOME/bin)")
+    build(name)
+    res = subprocess.run([tool, "-sass", str(_target(name))],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {name}:\n{res.stdout}")
+    return sum(1 for line in res.stdout.splitlines()
+               if f" {opcode}" in line and "/*" in line)
 
 
 def build(name: str) -> float:

@@ -27,6 +27,13 @@ workaround and is not carried over).
 tensor goes to ``score_blocks_plain``.  There is no fallback from one to
 the other.  What bounds the kernel on an H100, and its design, are stated
 at the top of ``csrc/ivf_score.cu``.
+
+The kernel computes its distance tiles on the tensor cores in TF32 and
+uses them only to decide which candidates it looks at exactly; the
+returned distances are direct float32 sums of ``(q - x)^2`` and the
+returned set is the exact float32 top-k.  ``filter_bound`` gives the two
+error terms of that decision (derived in ``csrc/dist_tile.cuh``, which
+also holds the rule they enter, ``filter_threshold``).
 """
 
 from __future__ import annotations
@@ -56,6 +63,27 @@ def kernel_d_pad(d: int) -> int:
             return w
     raise ValueError(f"ivf_score supports at most {MAX_D} coordinates; "
                      f"got {d}")
+
+
+def filter_bound(d_pad: int) -> tuple:
+    """``(eps, gam)`` of the kernel's candidate filter for a layout width.
+
+    With ``q'`` and ``x'`` the rows centred on the query block's centroid,
+    the TF32 key ``T = (1 - eps) |x'|^2 - 2 q'.x'`` satisfies
+    ``|q - x|^2 >= T + (1 - eps) |q'|^2`` and a candidate is dropped only
+    when ``T >= tau (1 + gam) - (1 - eps) |q'|^2``, which no candidate
+    whose float32 distance beats the row's current k-th distance ``tau``
+    can reach (``csrc/dist_tile.cuh``).  ``v = 2^-10`` covers both
+    rounding to nearest and truncation to TF32's 11 significand bits,
+    ``u = 2^-24`` is float32's unit roundoff, and the products run in
+    ``ceil(d_pad / 8)`` k-steps."""
+    if not 1 <= d_pad <= MAX_D:
+        raise ValueError(f"d_pad must lie in [1, {MAX_D}]; got {d_pad}")
+    u, v = 2.0 ** -24, 2.0 ** -10
+    k_steps = -(-d_pad // 8)
+    eps = 2 * v + v * v + (36 * k_steps + 2 * d_pad + 16) * u
+    gam = 2 * (d_pad + 8) * u
+    return eps, gam
 
 
 def _check(x4, sel_ids, probe_ids, blk_counts, blk_csum, k, g, q_blocks):
@@ -90,16 +118,28 @@ def _check(x4, sel_ids, probe_ids, blk_counts, blk_csum, k, g, q_blocks):
 
 
 def score_blocks(x4, sel_ids, probe_ids, blk_counts, blk_csum, k, g=128,
-                 q_blocks=1):
+                 q_blocks=1, stats=None):
     """Exact top-k of each slot's rows against its probed fine blocks
     (module docstring).  Returns (negd (ns, q_blocks*g, k) float32
-    descending, ids (ns, q_blocks*g, k) int32, compact coordinates)."""
+    descending, ids (ns, q_blocks*g, k) int32, compact coordinates).
+
+    ``stats`` is a debug argument that no path of the package passes: an
+    int64 tensor of two counters that the launch adds to, [0] the
+    candidates whose exact distance the kernel computed, [1] the live
+    (query row, candidate) pairs it met."""
     _check(x4, sel_ids, probe_ids, blk_counts, blk_csum, k, g, q_blocks)
     if x4.device.type == "cpu":
         return score_blocks_plain(x4, sel_ids, probe_ids, blk_counts,
                                   blk_csum, k, g=g, q_blocks=q_blocks)
     if x4.device.type != "cuda":
         raise ValueError(f"score_blocks runs on cuda or cpu, not {x4.device}")
+    if x4.data_ptr() % 16:
+        raise ValueError("x4 must start on a 16-byte boundary")
+    if stats is not None and (
+            stats.dtype != torch.int64 or stats.shape != (2,)
+            or stats.device != x4.device or not stats.is_contiguous()):
+        raise ValueError("stats must be a contiguous int64 tensor of 2 "
+                         "counters on x4's device")
     lib = _lib()
     ns, p = probe_ids.shape
     f_pad, _, d_pad = x4.shape
@@ -108,12 +148,14 @@ def score_blocks(x4, sel_ids, probe_ids, blk_counts, blk_csum, k, g=128,
     idx = torch.empty((ns, mq, k), dtype=torch.int32, device=x4.device)
     if ns == 0:
         return negd, idx
+    eps, gam = filter_bound(d_pad)
     with torch.cuda.device(x4.device):
         stream = torch.cuda.current_stream(x4.device).cuda_stream
         err = lib.ivf_score_launch(
             x4.data_ptr(), sel_ids.data_ptr(), probe_ids.data_ptr(),
             blk_counts.data_ptr(), blk_csum.data_ptr(), ns, f_pad, g, d_pad,
-            q_blocks, p, k, negd.data_ptr(), idx.data_ptr(), stream)
+            q_blocks, p, k, eps, gam, negd.data_ptr(), idx.data_ptr(),
+            None if stats is None else stats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ivf_score launch failed with CUDA error {err}")
     _build.count_launch(KERNEL)
@@ -189,7 +231,7 @@ def _lib():
         lib.ivf_score_launch.restype = ctypes.c_int
         lib.ivf_score_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-            + [ctypes.c_void_p] * 3)
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4)
         limits = (lib.ivf_score_max_k(), lib.ivf_score_max_g(),
                   lib.ivf_score_max_d())
         if limits != (MAX_K, MAX_G, MAX_D):

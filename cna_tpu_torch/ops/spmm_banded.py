@@ -23,6 +23,13 @@ the TPU package's:
 * the in-band product accumulates in the state's own dtype at full
   precision (float32, or float64 under x64): no TF32, no bf16.
 
+The packed fields above are the contract (equal to the TPU package's
+array for array).  What the CUDA kernel reads is a form derived from them
+once per graph, on the graph's device (``compact_inband``,
+``BandedGraph.compact``): the non-zero slots of each row moved together in
+their original order, so that the kernel touches an in-band edge once and
+an empty slot never.
+
 ``banded_inband`` is the kernel's wrapper.  A CUDA tensor goes to the
 kernel in ``csrc/banded_spmm.cu`` (built by ``nvcc`` at first use) or
 raises; a CPU tensor goes to ``banded_spmm_plain``.  There is no fallback
@@ -45,7 +52,57 @@ from . import _build
 from .spmm import _auto_block, coo_spmm_add, ell_spmm
 
 KERNEL = "banded_spmm"
-MAX_THREADS = 1024  # must match kMaxThreads in csrc/banded_spmm.cu
+SLOT_GROUP = 4  # slots to a 16-byte load of the compacted indices
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedCompact:
+    """The in-band slots of a ``BandedGraph`` without the empty ones.
+
+    Row ``r`` owns the slots ``[row_ptr[r], row_ptr[r + 1])`` of ``lidx``
+    and ``weights``: its ``row_nnz[r]`` non-zero slots in their packed
+    order, then (index 0, weight 0) slots up to a multiple of
+    ``SLOT_GROUP``.
+
+    Attributes:
+      row_ptr: int32 (N_pad + 1,), every entry a multiple of SLOT_GROUP.
+      lidx: int32 (row_ptr[-1],) slab-local neighbour indices.
+      weights: (row_ptr[-1],) edge weights, the packed graph's dtype.
+      row_nnz: int32 (N_pad,) non-zero slots of each packed row.
+    """
+
+    row_ptr: torch.Tensor
+    lidx: torch.Tensor
+    weights: torch.Tensor
+    row_nnz: torch.Tensor
+
+
+def compact_inband(lidx, weights) -> BandedCompact:
+    """Derive the compacted slots from the packed (N_pad, K) arrays, by
+    plain torch on their device.  The order of a row's slots is kept, so a
+    sum over the compacted row adds the same terms in the same order as a
+    sum over the packed row, less its exact zeros."""
+    n_pad = lidx.shape[0]
+    dev = lidx.device
+    live = weights != 0
+    row_nnz = live.sum(dim=1, dtype=torch.int64)
+    padded = (row_nnz + (SLOT_GROUP - 1)) // SLOT_GROUP * SLOT_GROUP
+    row_ptr = torch.zeros(n_pad + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(padded, 0, out=row_ptr[1:])
+    total = int(row_ptr[-1])
+    if total >= 2 ** 31:
+        raise ValueError(f"{total} compacted slots exceed the int32 row "
+                         "pointer of the banded kernel")
+    rows, cols = torch.nonzero(live, as_tuple=True)  # row-major: in order
+    first = torch.cumsum(row_nnz, 0) - row_nnz  # a row's first edge
+    dest = row_ptr[rows] + (torch.arange(rows.shape[0], device=dev)
+                            - first[rows])
+    c_lidx = torch.zeros(total, dtype=torch.int32, device=dev)
+    c_w = torch.zeros(total, dtype=weights.dtype, device=dev)
+    c_lidx[dest] = lidx[rows, cols]
+    c_w[dest] = weights[rows, cols]
+    return BandedCompact(row_ptr=row_ptr.to(torch.int32), lidx=c_lidx,
+                         weights=c_w, row_nnz=row_nnz.to(torch.int32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +121,9 @@ class BandedGraph:
       overflow_rows/cols/weights: COO tail for the spill's own overflow.
       colsums_raw: (N,) column sums (no self weight), as in EllGraph.
       n_rows_true / row_tile / slab_rows: geometry.
+      compact: the in-band slots without the empty ones, derived from
+        ``lidx`` and ``weights`` (``compact_inband``); what the CUDA
+        kernel reads.
     """
 
     lidx: torch.Tensor
@@ -78,6 +138,7 @@ class BandedGraph:
     n_rows_true: int
     row_tile: int
     slab_rows: int
+    compact: BandedCompact
 
     @property
     def dtype(self) -> torch.dtype:
@@ -205,22 +266,24 @@ def banded_from_arrays(lidx, weights, slab_starts, spill_indices,
                        overflow_weights, colsums_raw, n_rows_true, row_tile,
                        slab_rows, device=None) -> BandedGraph:
     """A ``BandedGraph`` from packed host arrays or tensors, on ``device``
-    (default: the configured device)."""
+    (default: the configured device), with the compacted slots derived
+    there."""
     dev = config.device() if device is None else torch.device(device)
 
     def ids(v):
         return to_device(v, dev, torch.int32).contiguous()
 
     weights = to_device(weights, dev).contiguous()
+    lidx = ids(lidx)
     return BandedGraph(
-        lidx=ids(lidx), weights=weights, slab_starts=ids(slab_starts),
+        lidx=lidx, weights=weights, slab_starts=ids(slab_starts),
         spill_indices=ids(spill_indices),
         spill_weights=to_device(spill_weights, dev, weights.dtype),
         overflow_rows=ids(overflow_rows), overflow_cols=ids(overflow_cols),
         overflow_weights=to_device(overflow_weights, dev, weights.dtype),
         colsums_raw=to_device(colsums_raw, dev, weights.dtype),
         n_rows_true=int(n_rows_true), row_tile=int(row_tile),
-        slab_rows=int(slab_rows))
+        slab_rows=int(slab_rows), compact=compact_inband(lidx, weights))
 
 
 def _check(lidx, weights, slab_starts, x, row_tile, slab_rows):
@@ -265,68 +328,38 @@ def banded_inband(graph: BandedGraph, x):
         return banded_spmm_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"banded SpMM runs on cuda or cpu, not {x.device}")
-    return _banded_spmm_cuda(*args)
+    return _banded_spmm_cuda(graph.compact, graph.slab_starts, x,
+                             graph.row_tile)
 
 
-def pick_s_chunk(s: int, slab_rows: int, itemsize: int,
-                 smem_limit: int) -> int:
-    """Columns of ``x`` a thread block stages at once: the fewest equal
-    chunks of the S axis whose (slab_rows, s_chunk) stage fits
-    ``smem_limit`` bytes.  Raises ValueError when one column does not
-    fit."""
-    fit = smem_limit // (slab_rows * itemsize)
-    if fit < 1:
-        raise ValueError(
-            f"a slab of {slab_rows} rows ({slab_rows * itemsize} bytes a "
-            f"column) does not fit the {smem_limit} bytes of shared memory "
-            "a thread block may use; pack the graph with a smaller "
-            "row_tile + 2 * window")
-    n_chunks = -(-s // fit)
-    return -(-s // n_chunks)
+def gather_vec(s: int, itemsize: int, x_ptr: int, y_ptr: int) -> int:
+    """Columns a thread of the kernel owns: the most of 4, 2, 1 that
+    divides ``s`` and makes 16 bytes or less, with rows of ``x`` and ``y``
+    on boundaries of that many elements."""
+    for vec in (4, 2):
+        nbytes = vec * itemsize
+        if nbytes <= 16 and s % vec == 0 and x_ptr % nbytes == 0 \
+                and y_ptr % nbytes == 0:
+            return vec
+    return 1
 
 
-def _launch_geometry(s, row_tile, slab_rows, itemsize, smem_limit):
-    """(columns per block, threads per block) of one launch.
-
-    The stage is held to half of what a block may opt into (less the 1 KB
-    the card reserves per block), so that two blocks share an SM and one
-    block's slab copy overlaps the other's gather; a slab too long for
-    that takes the whole limit.  About four outputs to a thread, between
-    128 and 512 threads.  On an H100 (NVIDIA H100 80GB HBM3, 700.00 W) at
-    1,000,000 x 32 slots and S = 50 in float32, three chunks of 17 columns
-    and 512 threads took 1.29 ms where two chunks of 25 columns (one block
-    to an SM) and 1,024 threads took 1.58 ms.
-    """
-    half = smem_limit // 2 - 1024
-    budget = half if half >= slab_rows * itemsize else smem_limit
-    s_chunk = pick_s_chunk(s, slab_rows, itemsize, budget)
-    threads = min(512, max(128, _round_up(row_tile * s_chunk // 4, 32)))
-    return s_chunk, threads
-
-
-def _banded_spmm_cuda(lidx, weights, slab_starts, x, row_tile, slab_rows):
+def _banded_spmm_cuda(compact, slab_starts, x, row_tile):
     lib = _lib()
-    n_pad, k = lidx.shape
+    n_pad = compact.row_nnz.shape[0]
     n_x, s = x.shape
-    if k % 4 == 0 and (lidx.data_ptr() % 16 or weights.data_ptr() % 16):
-        raise ValueError("lidx and weights must start on 16-byte boundaries")
-    dev_index = x.device.index
-    if dev_index is None:
-        dev_index = torch.cuda.current_device()
-    limit = lib.banded_spmm_max_smem(dev_index)
-    if limit <= 0:
-        raise RuntimeError("querying the card's shared memory failed with "
-                           f"CUDA error {-limit}")
-    s_chunk, threads = _launch_geometry(s, row_tile, slab_rows,
-                                        x.element_size(), limit)
+    if compact.lidx.data_ptr() % 16 or compact.weights.data_ptr() % 16:
+        raise ValueError("the compacted slots must start on 16-byte "
+                         "boundaries")
     y = torch.empty((n_pad, s), dtype=x.dtype, device=x.device)
+    vec = gather_vec(s, x.element_size(), x.data_ptr(), y.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.banded_spmm_launch(
-            lidx.data_ptr(), weights.data_ptr(), slab_starts.data_ptr(),
-            x.data_ptr(), y.data_ptr(), n_pad // row_tile, row_tile,
-            slab_rows, k, n_x, s, s_chunk, int(x.dtype == torch.float64),
-            threads, stream)
+            compact.row_ptr.data_ptr(), compact.lidx.data_ptr(),
+            compact.weights.data_ptr(), slab_starts.data_ptr(), x.data_ptr(),
+            y.data_ptr(), n_pad // row_tile, row_tile, n_x, s, vec,
+            int(x.dtype == torch.float64), stream)
     if err != 0:
         raise RuntimeError(f"banded_spmm launch failed with CUDA error {err}")
     _build.count_launch(KERNEL)
@@ -382,12 +415,5 @@ def _lib():
     if lib.banded_spmm_launch.argtypes is None:  # first use: the C ABI
         lib.banded_spmm_launch.restype = ctypes.c_int
         lib.banded_spmm_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-        lib.banded_spmm_max_smem.restype = ctypes.c_int
-        lib.banded_spmm_max_smem.argtypes = [ctypes.c_int]
-        lib.banded_spmm_max_threads.restype = ctypes.c_int
-        lib.banded_spmm_max_threads.argtypes = []
-        if lib.banded_spmm_max_threads() != MAX_THREADS:
-            raise RuntimeError("banded_spmm library limit disagrees with "
-                               "ops/spmm_banded.py's MAX_THREADS")
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return lib

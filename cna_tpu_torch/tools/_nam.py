@@ -91,9 +91,9 @@ def set_graph_format(data, fmt: str) -> None:
       long run to it.  On the 1,000,000-cell synthetic manifold data
       (50 samples, 15 neighbours; NVIDIA H100 80GB HBM3, 700.00 W,
       ``chip_smoke.py``) the band fraction was 0.43, a diffusion step
-      took 15.5 ms against 12.1 ms under the default format (the kernel's
-      in-band product 2.0 ms of it, the rest the out-of-band spill
-      gather), and the one-time host packing 17.5 s.
+      took 14.1 ms against 12.1 ms under the default format (the kernel's
+      in-band product 0.48 ms of it, the rest the out-of-band spill
+      gather in plain torch), and the one-time host packing 18.5 s.
 
     The three locality formats materialize a device-resident graph as a
     host CSR and pack it on the host once (profiling phase

@@ -277,20 +277,173 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
 
 
 def test_column_chunks_fit_the_shared_memory_or_raise():
+    """Shapes that the staged kernel had to cut into column chunks, or to
+    refuse because one column of the slab outgrew a thread block's shared
+    memory (S = 200 in float64; a slab of 20,000 rows; a window of 40,000):
+    the kernel stages no slab any more, so each of them is simply taken.
+    Their compacted slots give the packed graph's in-band product, and the
+    thread's vector width is all the geometry that is left."""
     limit = 232448  # what an H100 thread block may opt into
-    assert sb.pick_s_chunk(50, 1280, 4, limit) == 25
-    assert sb.pick_s_chunk(45, 1280, 4, limit) == 45
-    assert sb.pick_s_chunk(46, 1280, 4, limit) == 23
-    assert sb.pick_s_chunk(1, 1280, 4, limit) == 1
-    assert sb.pick_s_chunk(200, 1280, 8, limit) == 20
-    for s, slab, item in ((50, 1280, 4), (200, 1280, 8), (7, 96, 4)):
-        chunk = sb.pick_s_chunk(s, slab, item, limit)
-        assert slab * chunk * item <= limit and chunk <= s
-    with pytest.raises(ValueError, match="232448 bytes"):
-        sb.pick_s_chunk(50, 40000, 8, limit)
-    # two blocks to an SM where a column fits half the limit
-    assert sb._launch_geometry(50, 256, 1280, 4, limit) == (17, 512)
-    assert sb._launch_geometry(50, 256, 1280, 8, limit) == (10, 512)
-    assert sb._launch_geometry(1, 256, 1280, 4, limit) == (1, 128)
-    s_chunk, threads = sb._launch_geometry(8, 256, 20000, 8, limit)
-    assert s_chunk == 1 and 20000 * 8 > limit // 2  # the whole limit
+    shapes = [  # n, row_tile, window, S, dtype
+        (3_000, 256, 512, 200, np.float64),  # 1,280 x 200 x 8 B > limit
+        (21_000, 256, 9_872, 8, np.float64),  # slab 20,000: no chunk fitted
+        (2_000, 256, 40_000, 50, np.float64),  # raised "232448 bytes"
+        (3_000, 256, 512, 50, np.float32),  # took 2 chunks of 25 columns
+    ]
+    for n, tile, window, s, dtype in shapes:
+        a = banded_random_graph(n, 4, 40, seed=n % 7)
+        graph = sb.banded_from_scipy(a, row_tile=tile, window=window,
+                                     dtype=dtype)
+        item = np.dtype(dtype).itemsize
+        assert graph.slab_rows == tile + 2 * window
+        assert graph.slab_rows * s * item > limit
+        _assert_compact_is_the_packed_rows(graph)
+        x = torch.as_tensor(np.random.RandomState(n).rand(n, s)
+                            .astype(dtype))
+        want = sb.banded_spmm_plain(graph.lidx, graph.weights,
+                                    graph.slab_starts, x, tile,
+                                    graph.slab_rows)
+        got = compact_inband_plain(graph.compact, graph.slab_starts, x, tile)
+        rtol = 1e-12 if dtype == np.float64 else 1e-6
+        assert got.shape == want.shape == (graph.lidx.shape[0], s)
+        assert float(want.abs().max()) > 0
+        assert float((got - want).abs().max()) \
+            <= rtol * float(want.abs().max())
+        # and the wrapper's CPU route takes them too
+        np.testing.assert_array_equal(sb.banded_inband(graph, x).numpy(),
+                                      want.numpy())
+        assert sb.gather_vec(s, item, 0, 0) == (4 if item == 4 and s % 4 == 0
+                                                else 2)
+
+
+# --- the compacted slots the CUDA kernel reads ------------------------------
+
+
+def compact_inband_plain(compact, slab_starts, x, row_tile):
+    """The in-band product read from the compacted slots, in plain
+    PyTorch: what the CUDA kernel computes from the same arrays.  (N_pad, S)
+    out, slab rows beyond ``x`` read as zeros."""
+    n_pad = compact.row_nnz.shape[0]
+    n_x, s = x.shape
+    ptr = compact.row_ptr.long()
+    rows = torch.repeat_interleave(
+        torch.arange(n_pad, device=x.device), ptr[1:] - ptr[:-1])
+    starts = slab_starts.long()[torch.div(rows, row_tile,
+                                          rounding_mode="floor")]
+    gidx = starts + compact.lidx.long()
+    inside = gidx < n_x
+    terms = (compact.weights * inside)[:, None] * x[gidx * inside]
+    return x.new_zeros((n_pad, s)).index_add_(0, rows, terms)
+
+
+def _assert_compact_is_the_packed_rows(graph):
+    """Row by row: the non-zero slots of the packed row, in their order,
+    then zero slots up to a multiple of SLOT_GROUP."""
+    c = graph.compact
+    lidx, w = graph.lidx.numpy(), graph.weights.numpy()
+    ptr = c.row_ptr.numpy()
+    assert c.row_ptr.dtype == c.lidx.dtype == c.row_nnz.dtype == torch.int32
+    assert c.weights.dtype == graph.weights.dtype
+    assert ptr[0] == 0 and ptr[-1] == len(c.lidx) == len(c.weights)
+    assert (ptr % sb.SLOT_GROUP == 0).all() and (np.diff(ptr) >= 0).all()
+    np.testing.assert_array_equal(c.row_nnz.numpy(), (w != 0).sum(1))
+    np.testing.assert_array_equal(
+        np.diff(ptr), -(-c.row_nnz.numpy() // sb.SLOT_GROUP) * sb.SLOT_GROUP)
+    for r in range(lidx.shape[0]):
+        nnz = int(c.row_nnz[r])
+        keep = w[r] != 0
+        np.testing.assert_array_equal(
+            c.lidx.numpy()[ptr[r]:ptr[r] + nnz], lidx[r][keep])
+        np.testing.assert_array_equal(
+            c.weights.numpy()[ptr[r]:ptr[r] + nnz], w[r][keep])
+        assert not c.lidx.numpy()[ptr[r] + nnz:ptr[r + 1]].any()
+        assert not c.weights.numpy()[ptr[r] + nnz:ptr[r + 1]].any()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12),
+                                        (np.float32, 1e-6)])
+def test_compact_form_reproduces_inband_product(case, dtype, rtol):
+    a, c = _case_graph(case)
+    kw = dict(row_tile=c["row_tile"], window=c["window"])
+    graph = sb.banded_from_scipy(a, dtype=dtype, **kw)
+    # the packed fields are still the TPU package's, array for array
+    ref = tpu_banded.banded_from_scipy(a, dtype=dtype, **kw)
+    assert_same_pack(ref, {**{f: getattr(graph, f).numpy() for f in FIELDS},
+                           **{g: getattr(graph, g) for g in GEOMETRY}})
+    _assert_compact_is_the_packed_rows(graph)
+    assert 0 < int(graph.compact.row_nnz.sum()) < graph.lidx.numel()
+    x = torch.as_tensor(np.random.RandomState(5).rand(c["n"], 11)
+                        .astype(dtype))
+    want = sb.banded_spmm_plain(graph.lidx, graph.weights, graph.slab_starts,
+                                x, graph.row_tile, graph.slab_rows)
+    got = compact_inband_plain(graph.compact, graph.slab_starts, x,
+                               graph.row_tile)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_compact_form_of_empty_full_and_ragged_rows(dtype):
+    """K = 0; and one graph with an all-empty row, an all-full row and
+    counts that run from 0 to K, its non-zero slots scattered in the row."""
+    empty = sb.banded_from_arrays(
+        np.zeros((128, 0), np.int32), np.zeros((128, 0), dtype),
+        np.zeros(2, np.int32), np.zeros((100, 0), np.int32),
+        np.zeros((100, 0), dtype), np.zeros(0, np.int32),
+        np.zeros(0, np.int32), np.zeros(0, dtype), np.zeros(100, dtype), 100,
+        64, 96)
+    assert empty.compact.lidx.shape == (0,)
+    assert not empty.compact.row_ptr.any() and not empty.compact.row_nnz.any()
+    x = torch.ones((100, 3), dtype=empty.dtype)
+    y = compact_inband_plain(empty.compact, empty.slab_starts, x, 64)
+    assert y.shape == (128, 3) and not y.any()
+
+    n, k, tile, window = 256, 10, 64, 32
+    rs = np.random.RandomState(8)
+    starts = np.clip(np.arange(n // tile) * tile - window, 0,
+                     n - (tile + 2 * window)).astype(np.int32)
+    lidx = rs.randint(0, tile + 2 * window, (n, k)).astype(np.int32)
+    w = (rs.rand(n, k) * 0.9 + 0.1).astype(dtype)
+    counts = np.arange(n) % (k + 1)
+    counts[5], counts[6] = 0, k  # an all-empty row beside an all-full one
+    keep = np.arange(k)[None, :] < counts[:, None]
+    keep = np.take_along_axis(keep, np.argsort(rs.rand(n, k), axis=1), axis=1)
+    graph = sb.banded_from_arrays(
+        np.where(keep, lidx, 0), np.where(keep, w, 0).astype(dtype), starts,
+        np.zeros((n, 0), np.int32), np.zeros((n, 0), dtype),
+        np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(0, dtype),
+        np.zeros(n, dtype), n, tile, tile + 2 * window)
+    _assert_compact_is_the_packed_rows(graph)
+    np.testing.assert_array_equal(graph.compact.row_nnz.numpy(), counts)
+    x = torch.as_tensor(rs.rand(n, 7).astype(dtype))
+    want = sb.banded_spmm_plain(graph.lidx, graph.weights, graph.slab_starts,
+                                x, tile, tile + 2 * window)
+    got = compact_inband_plain(graph.compact, graph.slab_starts, x, tile)
+    rtol = 1e-12 if dtype == np.float64 else 1e-6
+    assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+    assert not got[5].any() and got[6].any()
+
+
+def test_compact_slots_read_rows_beyond_x_as_zeros():
+    """N below the slab: slab rows at or beyond N contribute nothing, in
+    the packed and in the compacted product alike."""
+    a, c = _case_graph("below_slab")
+    graph = sb.banded_from_scipy(a, row_tile=c["row_tile"],
+                                 window=c["window"])
+    x = torch.as_tensor(np.random.RandomState(6).rand(c["n"] - 40, 4))
+    want = sb.banded_spmm_plain(graph.lidx, graph.weights, graph.slab_starts,
+                                x, graph.row_tile, graph.slab_rows)
+    got = compact_inband_plain(graph.compact, graph.slab_starts, x,
+                               graph.row_tile)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=F64_RTOL,
+                               atol=1e-13)
+
+
+def test_kernel_picks_its_vector_width():
+    assert sb.gather_vec(50, 4, 0, 0) == 2  # 50 float32 columns: pairs
+    assert sb.gather_vec(52, 4, 256, 512) == 4
+    assert sb.gather_vec(52, 4, 8, 512) == 2  # x not on 16 bytes
+    assert sb.gather_vec(7, 4, 0, 0) == 1
+    assert sb.gather_vec(50, 8, 0, 0) == 2  # float64: 16 bytes are a pair
+    assert sb.gather_vec(52, 8, 8, 0) == 1

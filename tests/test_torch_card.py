@@ -107,6 +107,92 @@ def test_ivf_score_matches_plain(f_pad, g, d, q_blocks, n_probe, k):
     untied[..., 1:] &= ~(gap <= F32_DIST_ATOL)
     untied[..., :-1] &= ~(gap <= F32_DIST_ATOL)
     assert bool((idx == pi)[found & untied].all())
+    # the same launch again: bit for bit the same
+    again = ivf_ops.score_blocks(*args, g=g, q_blocks=q_blocks)
+    assert torch.equal(again[0], negd) and torch.equal(again[1], idx)
+
+
+def _assert_exact_topk(args, g, k):
+    """The kernel's sorted distances equal the plain version's rank by rank
+    (1e-4 of the row's k-th distance: both sum (q - x)^2 in float32), every
+    row that probes its own block is at distance exactly 0 from itself, and
+    a second launch gives the same bits."""
+    negd, idx = ivf_ops.score_blocks(*args, k, g=g)
+    torch.cuda.synchronize()
+    pn, _ = ivf_ops.score_blocks_plain(*args, k, g=g)
+    found = torch.isfinite(pn)
+    assert bool((torch.isfinite(negd) == found).all())
+    assert bool((idx[~found] == 0).all())
+    dk, dp = torch.where(found, -negd, 0.0), torch.where(found, -pn, 0.0)
+    scale = dp.amax(-1, keepdim=True)
+    err = torch.where(scale > 0, (dk - dp).abs() / scale.clamp(min=1e-30),
+                      (dk - dp).abs())
+    assert float(err.max()) <= 1e-4
+    again = ivf_ops.score_blocks(*args, k, g=g)
+    assert torch.equal(again[0], negd) and torch.equal(again[1], idx)
+    return negd, idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [3, 8, 12, 16, 20, 24, 28, 32, 40, 64, 96, 128])
+@pytest.mark.parametrize("g,k", [(128, 1), (128, 15), (64, 64), (128, 128)])
+def test_ivf_score_every_width_and_k(d, g, k):
+    need_cuda()
+    assert ivf_ops.kernel_d_pad(d) in ivf_ops.D_PADS
+    gen, x4, counts, csum = _random_layout(48, g, d, n_dummy=4)
+    sel = torch.arange(12, device="cuda", dtype=torch.int32)
+    probes = torch.stack([
+        torch.randperm(48, generator=gen, device="cuda")[:16]
+        for _ in range(12)]).to(torch.int32)
+    probes[:, 0] = sel  # every slot probes itself
+    negd, idx = _assert_exact_topk((x4, sel, probes, counts, csum), g, k)
+    live = (torch.arange(g, device="cuda")[None, :]
+            < counts[sel.long()][:, None])
+    assert bool((negd[..., 0][live] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attack", ["offset", "tiny_spread", "far_centres",
+                                    "duplicates", "identical_blocks"])
+@pytest.mark.parametrize("g,k", [(128, 1), (128, 15), (64, 64), (128, 128)])
+def test_ivf_score_filter_attacks(attack, g, k):
+    """Inputs chosen against the TF32 candidate filter: a common offset a
+    thousand times the spread, the same with a spread float32 barely
+    resolves, local blocks around far-apart centres, every point four
+    times, and blocks of identical rows."""
+    need_cuda()
+    d, f_pad = 20, 64
+    gen, x4, counts, csum = _random_layout(f_pad, g, d, n_dummy=4,
+                                           min_count=g // 3)
+    if attack == "offset":
+        x4[:, :, :d] += 1000.0
+    elif attack == "tiny_spread":
+        x4[:, :, :d] = x4[:, :, :d] * 1e-3 + 1000.0
+    elif attack == "far_centres":
+        x4[:, :, :d] += 500.0 * torch.randn(f_pad, 1, d, generator=gen,
+                                            device="cuda")
+    elif attack == "duplicates":
+        flat = x4.reshape(-1, x4.shape[2])
+        quarter = flat.shape[0] // 4
+        perm = torch.randperm(flat.shape[0], generator=gen, device="cuda")
+        for rep in range(1, 4):
+            flat[perm[rep * quarter:(rep + 1) * quarter]] = \
+                flat[perm[:quarter]]
+    else:
+        x4[0] = x4[0, :1]
+        x4[1] = x4[0, :1]
+        x4[2] = x4[2, :1]
+    ns = 24
+    sel = torch.arange(ns, device="cuda", dtype=torch.int32)
+    probes = torch.stack([
+        torch.randperm(f_pad - 4, generator=gen, device="cuda")[:32]
+        for _ in range(ns)]).to(torch.int32)
+    probes[:, 0] = sel
+    probes[:, 1:4] = torch.arange(3, device="cuda", dtype=torch.int32)
+    negd, _ = _assert_exact_topk((x4, sel, probes, counts, csum), g, k)
+    live = (torch.arange(g, device="cuda")[None, :]
+            < counts[sel.long()][:, None])
+    assert bool((negd[..., 0][live] == 0).all())
 
 
 @pytest.mark.gpu
@@ -215,12 +301,48 @@ def test_banded_kernel_matches_plain(n, s, row_tile, window, dtype):
     assert y.shape == ref.shape == (g.lidx.shape[0], s) and y.dtype == dtype
     assert float((y - ref).abs().max()) \
         <= BANDED_RTOL[dtype] * float(ref.abs().max())
+    # the same launch again gives the same bits
+    assert torch.equal(banded_ops.banded_inband(g, x), y)
     # the whole product (in-band kernel + spill gather + COO tail)
     full = banded_ops.banded_spmm(g, x)
     want = torch.as_tensor(a @ x.double().cpu().numpy(), device="cuda")
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((full.double() - want).abs().max()) \
         <= tol * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fill", ["full", "ragged", "empty"])
+def test_banded_kernel_full_ragged_and_empty_rows(fill, dtype):
+    """Every slot in band; non-zero counts from 0 to K within every 32 rows,
+    scattered in the row; and no edge at all."""
+    need_cuda()
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    n, k, tile, window = 1024, 12, 256, 128
+    rs = np.random.RandomState(6)
+    starts = np.clip(np.arange(n // tile) * tile - window, 0,
+                     n - (tile + 2 * window)).astype(np.int32)
+    lidx = rs.randint(0, tile + 2 * window, (n, k)).astype(np.int32)
+    w = (rs.rand(n, k) * 0.9 + 0.1).astype(np_dtype)
+    counts = {"full": np.full(n, k), "ragged": np.arange(n) % (k + 1),
+              "empty": np.zeros(n, int)}[fill]
+    keep = np.arange(k)[None, :] < counts[:, None]
+    keep = np.take_along_axis(keep, np.argsort(rs.rand(n, k), axis=1), axis=1)
+    g = banded_ops.banded_from_arrays(
+        np.where(keep, lidx, 0), np.where(keep, w, 0).astype(np_dtype),
+        starts, np.zeros((n, 0), np.int32), np.zeros((n, 0), np_dtype),
+        np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(0, np_dtype),
+        np.zeros(n, np_dtype), n, tile, tile + 2 * window, device="cuda")
+    assert bool((g.compact.row_nnz.cpu() == torch.as_tensor(counts)).all())
+    x = torch.rand((n, 50), device="cuda", dtype=dtype)
+    ref = banded_ops.banded_spmm_plain(g.lidx, g.weights, g.slab_starts, x,
+                                       tile, tile + 2 * window)
+    y = banded_ops.banded_inband(g, x)
+    assert float((y - ref).abs().max()) \
+        <= BANDED_RTOL[dtype] * max(float(ref.abs().max()), 1.0)
+    assert torch.equal(y, banded_ops.banded_inband(g, x))
 
 
 @pytest.mark.gpu
@@ -233,11 +355,14 @@ def test_banded_kernel_rejects_what_it_cannot_take():
         banded_ops.banded_inband(g, x.double())
     with pytest.raises(ValueError, match="is on"):
         banded_ops.banded_inband(g, x.cpu())
-    # a slab of which not one column fits a block's shared memory
+    # no slab is too long for the kernel: it stages none
     huge = banded_ops.banded_from_scipy(a, row_tile=256, window=40_000,
                                         device="cuda", dtype=np.float64)
-    with pytest.raises(ValueError, match="does not fit"):
-        banded_ops.banded_inband(huge, x.double())
+    y = banded_ops.banded_inband(huge, x.double())
+    ref = banded_ops.banded_spmm_plain(
+        huge.lidx, huge.weights, huge.slab_starts, x.double(), huge.row_tile,
+        huge.slab_rows)
+    assert float((y - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
 
 @pytest.mark.gpu

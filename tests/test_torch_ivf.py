@@ -473,3 +473,125 @@ def test_devices_argument_names_its_roadmap_item():
     x = np.random.RandomState(2).randn(500, 4).astype(np.float32)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         ivf_knn(x, 10, devices=["cuda:0", "cuda:1"])
+
+
+# --- the CUDA kernel's TF32 candidate filter (ops.ivf.filter_bound) ---------
+#
+# The kernel looks at a candidate exactly unless its TF32 key reaches the
+# row's threshold.  Here the key is emulated in torch: operands centred on the
+# query block's centroid in float32, rounded to TF32's 11 significand bits
+# (by masking the low 13 mantissa bits, and by rounding to nearest as
+# `cvt.rna` does), multiplied and summed exactly (float64) onto the float32
+# norm term that the accumulator starts from, on seeded numpy data.  No
+# candidate whose float32 distance beats a threshold tau may have a key at or
+# above ``_filter_threshold(tau, ...)``, for the tightest tau there is (the
+# next float32 above the candidate's own distance).
+
+
+def _filter_threshold(tau, nq, eps, gam):
+    """The filter's per-row threshold for a current k-th distance ``tau``
+    and centred squared norm ``nq``, in float32 as the kernel evaluates it
+    (``filter_threshold`` of ``csrc/dist_tile.cuh``): a key at or above it
+    is dropped."""
+    tau = tau.to(torch.float32)
+    nq = nq.to(torch.float32)
+    one_minus = torch.tensor(1.0, dtype=torch.float32) - torch.tensor(
+        eps, dtype=torch.float32)
+    return torch.addcmul(tau, tau, torch.tensor(gam, dtype=torch.float32)) \
+        - nq * one_minus
+
+
+def _tf32(t, mode):
+    bits = t.contiguous().view(torch.int32)
+    if mode == "nearest":  # ties away from zero, on the magnitude bits
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _filter_keys(q, x, d_pad, mode):
+    """(keys (m, n) float32, nq (m,) float32) as the kernel forms them for
+    a query block ``q`` (m, d_pad) and candidates ``x`` (n, d_pad)."""
+    eps, _ = ivf_ops.filter_bound(d_pad)
+    one_minus = torch.tensor(1.0, dtype=torch.float32) - torch.tensor(
+        eps, dtype=torch.float32)
+    cen = (q.sum(0) / q.shape[0]).to(torch.float32)
+    qc, xc = q - cen, x - cen
+    nq = (qc * qc).sum(1)
+    start = (xc * xc).sum(1) * one_minus
+    a = _tf32(-2.0 * qc, mode).double()
+    b = _tf32(xc, mode).double()
+    return (start.double()[None, :] + a @ b.T).to(torch.float32), nq
+
+
+def _assert_filter_keeps_every_closer_candidate(q, x, k, mode):
+    d_pad = q.shape[1]
+    eps, gam = ivf_ops.filter_bound(d_pad)
+    keys, nq = _filter_keys(q, x, d_pad, mode)
+    d2 = ((q[:, None, :] - x[None, :, :]) ** 2).sum(-1)  # float32, direct
+    assert d2.dtype == torch.float32
+    # the tightest threshold a candidate must still pass
+    tau = torch.nextafter(d2, torch.full_like(d2, float("inf")))
+    thr = _filter_threshold(tau, nq[:, None], eps, gam)
+    assert bool((keys < thr).all()), float((keys - thr).max())
+    # and at the row's final k-th distance no member of the top-k is lost
+    kth = torch.sort(d2, dim=1).values[:, min(k, x.shape[0]) - 1]
+    thr_k = _filter_threshold(kth, nq, eps, gam)[:, None]
+    assert bool((keys < thr_k)[d2 < kth[:, None]].all())
+    return float((keys < thr_k).float().mean())  # share let through
+
+
+def _filter_data(kind, seed, m, n, d, d_pad):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(m, d)
+    x = np.concatenate([rng.randn(n - m, d) * rng.choice([0.5, 1.0, 3.0]),
+                        q])  # the block's own rows are candidates too
+    if kind == "offset":  # norms 1e3 times the neighbour distances
+        shift = 1000.0 * np.sqrt(d) * rng.choice([-1.0, 1.0], d)
+        q, x = q + shift, x + shift
+    elif kind == "far_offset":  # candidates of other, far-away blocks
+        x[: n // 2] += 300.0 * rng.randn(1, d)
+    elif kind == "duplicates":
+        x[: n // 2] = x[n // 2: 2 * (n // 2)]
+        q[1::2] = q[::2][: len(q[1::2])]
+    elif kind == "identical":
+        q[:] = q[0]
+        x[: n // 2] = q[0]
+    elif kind == "tiny_spread":
+        q, x = 1000.0 + 1e-3 * q, 1000.0 + 1e-3 * x
+    out = []
+    for a in (q, x):
+        p = np.zeros((a.shape[0], d_pad), np.float32)
+        p[:, :d] = a
+        out.append(torch.from_numpy(p))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["mask", "nearest"])
+@pytest.mark.parametrize("kind", ["random", "offset", "far_offset",
+                                  "duplicates", "identical", "tiny_spread"])
+@pytest.mark.parametrize("d", [3, 20, 24, 100])
+def test_filter_never_drops_a_closer_candidate(kind, d, mode):
+    d_pad = ivf_ops.kernel_d_pad(d)
+    q, x = _filter_data(kind, seed=d, m=96, n=512, d=d, d_pad=d_pad)
+    share = _assert_filter_keeps_every_closer_candidate(q, x, 15, mode)
+    if kind == "random" and d >= 20:
+        # and it is a filter: centred blocks let little more than the
+        # top-k through (15 of 512 are 0.03)
+        assert share < 0.06, share
+
+
+def test_filter_bound_terms():
+    u, v = 2.0 ** -24, 2.0 ** -10
+    eps, gam = ivf_ops.filter_bound(20)
+    assert eps == 2 * v + v * v + (36 * 3 + 40 + 16) * u
+    assert gam == 2 * 28 * u
+    widths = [ivf_ops.filter_bound(w) for w in ivf_ops.D_PADS]
+    assert all(a[0] < b[0] and a[1] < b[1]
+               for a, b in zip(widths, widths[1:]))
+    assert all(2 * v < e < 2.2 * v and g < 1e-4 for e, g in widths)
+    with pytest.raises(ValueError, match="d_pad"):
+        ivf_ops.filter_bound(129)
+    # the threshold of a row that has no k-th distance yet lets all through
+    thr = _filter_threshold(torch.tensor([float("inf"), 0.0]),
+                            torch.tensor([3.0, 3.0]), eps, gam)
+    assert thr[0] == float("inf") and thr[1] == -3.0 * (1 - np.float32(eps))

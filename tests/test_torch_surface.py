@@ -232,6 +232,24 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         == sorted(_build.KERNELS)
 
 
+def test_library_name_follows_the_source_and_its_own_headers(monkeypatch,
+                                                             tmp_path):
+    """An edited header rebuilds the kernels that include it, directly or
+    through another header, and no other."""
+    (tmp_path / "a.cu").write_text('#include <cstdint>\n#include "t.cuh"\n')
+    (tmp_path / "b.cu").write_text("// includes nothing of csrc\n")
+    (tmp_path / "t.cuh").write_text('  #  include "u.cuh"\n')
+    (tmp_path / "u.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build._sources("a")] == ["a.cu", "t.cuh",
+                                                      "u.cuh"]
+    assert [p.name for p in _build._sources("b")] == ["b.cu"]
+    before = {name: _build._target(name) for name in "ab"}
+    (tmp_path / "u.cuh").write_text("// v2\n")
+    assert _build._target("a") != before["a"]
+    assert _build._target("b") == before["b"]
+
+
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
