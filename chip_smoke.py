@@ -10,10 +10,11 @@ Phases, each of which must pass (any failure exits non-zero):
    ``cna_tpu_torch/csrc`` into ``cna_tpu_torch/_build`` (one ``nvcc`` per
    source, started together);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   its main path's shape and at extra shapes (for the scoring kernel also
-   inputs that attack its TF32 candidate filter: a large common offset,
-   duplicated points, a block of identical rows; for the banded kernel
-   rows that are all full and counts from 0 to K within a warp); timed with CUDA events beside its bound and a PyTorch library
+   its main path's shape and at extra shapes (for the two kNN kernels also
+   inputs that attack their TF32 candidate filter: a large common offset,
+   a tiny spread, duplicated points, blocks of identical rows; for the
+   banded kernel rows that are all full and counts from 0 to K within a
+   warp); timed with CUDA events beside its bound and a PyTorch library
    yardstick;
 4. the 100,000-cell path: synthetic data (50 samples x 2,000 cells x 50
    genes) -> ``pp.pca`` -> ``pp.neighbors`` (the exact kNN kernel, the
@@ -46,6 +47,15 @@ The last two lines of standard output are a JSON object describing each
 kernel and the ``{"ok": true, "device": ...}`` line.  Without a CUDA
 device, or without the package beside this file, it exits non-zero and
 prints no result.
+
+    python3 chip_smoke.py --against DIR
+
+also runs the package of another checkout at DIR (for example the parent
+commit, unpacked with ``git archive``) in a second process on the same
+card: its ``knn_exact`` on the inputs of every ``KNN_CASES`` shape and
+attack case, and its 100,000-cell path (phase 4); the ids and distances,
+and the path's p, k, ``ncorrs`` and NAM, must equal this checkout's bit
+for bit.
 """
 
 from __future__ import annotations
@@ -72,12 +82,35 @@ PEAK_BYTES_PER_S = 3.35e12
 IVF_MMA_PASSES = 1
 
 KNN_CASES = [(100_000, 20, 15), (1_037, 7, 5), (20_011, 50, 64)]
+# inputs chosen against knn_exact's TF32 candidate filter and the corners of
+# its dispatch, (label, n, d, k, kind): a common offset 1,000 times the
+# spread; a spread of 1e-3 around it, which float32 resolves to a few
+# digits; every point four times (ties at every rank, a first distance of 0
+# that belongs to the lowest id of the copies); a block of 300 identical
+# rows, longer than a thread block's 128; N not a multiple of 128; every D
+# of the list {3, 7, 50, 128} and every k of {1, 15, 64, 128}
+KNN_ATTACKS = [
+    ("offset 1e3 x spread", 4_000, 20, 15, "offset"),
+    ("spread 1e-3 around 1e3", 4_000, 20, 15, "tiny_spread"),
+    ("every point four times, k=1", 4_000, 20, 1, "duplicates"),
+    ("every point four times, k=15", 4_000, 20, 15, "duplicates"),
+    ("every point four times, k=64", 4_000, 20, 64, "duplicates"),
+    ("300 identical rows, k=128", 3_000, 20, 128, "identical"),
+    ("N=5,001", 5_001, 20, 15, "random"),
+    ("D=3, k=64", 3_000, 3, 64, "random"),
+    ("D=7, k=1", 3_000, 7, 1, "random"),
+    ("D=50, k=128", 3_000, 50, 128, "random"),
+    ("D=128, k=15", 3_000, 128, 15, "random"),
+]
+# MMA passes knn_exact spends on a distance tile (one TF32 product, the
+# operands centred on the mean of x)
+KNN_MMA_PASSES = 1
 DIST_ATOL = 1e-3  # float32 squared distances summed in different orders
-# the scoring kernel's sorted distances against the plain version's, rank by
+# the kNN kernels' sorted distances against the plain versions', rank by
 # rank, relative to the row's k-th distance (both are direct float32 sums of
-# (q - x)^2; the plain version goes through a square root): holds at any
+# (q - x)^2; the plain versions go through a square root): holds at any
 # scale of the data, where DIST_ATOL is blind below 1e-3
-IVF_RANK_RTOL = 1e-4
+RANK_RTOL = 1e-4
 # the scoring kernel at the 1M-cell index is held to its plain version on
 # every IVF_SHARE-th slot (the plain version's direct-difference distance
 # tiles take minutes over all slots); the kernel alone is also timed over
@@ -150,59 +183,182 @@ def library_knn(x, k, block=4096):
         torch.topk(torch.cdist(x[s:s + block], x), k, dim=1, largest=False)
 
 
-def check_knn_case(n, d, k, seed, timed):
-    """Kernel vs plain version at one shape; returns a record."""
+def knn_input(kind, n, d, seed):
+    """An (n, d) float32 input on the card for ``check_knn_case``: 'random'
+    (standard normal) or one of the attacks of ``KNN_ATTACKS``."""
     import torch
-
-    from cna_tpu_torch.ops import knn
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     x = torch.randn(n, d, generator=gen, device="cuda")
-    negd, idx = knn.knn_exact(x, k)
+    if kind == "offset":
+        x = x + 1000.0
+    elif kind == "tiny_spread":
+        x = x * 1e-3 + 1000.0
+    elif kind == "duplicates":
+        base = x[: n // 4]
+        x = base.repeat(4, 1)[torch.randperm(n, generator=gen,
+                                             device="cuda")]
+    elif kind == "identical":
+        x[100:400] = x[100]
+    elif kind != "random":
+        raise ValueError(f"unknown kNN input {kind!r}")
+    return x.contiguous()
+
+
+def check_knn_case(label, x, k, timed):
+    """knn_exact vs its plain version on one input; returns a record (with
+    times, bound, yardstick, exact-path share and a digest of the output
+    when ``timed``)."""
+    import torch
+
+    from cna_tpu_torch.ops import knn
+
+    n, d = x.shape
+    stats = torch.zeros(knn.N_STATS, dtype=torch.int64, device="cuda")
+    negd, idx = knn.knn_exact(x, k, stats=stats)
     torch.cuda.synchronize()
+    counters = [int(v) for v in stats.cpu()]
+    again = knn.knn_exact(x, k)
+    if not (torch.equal(again[0], negd) and torch.equal(again[1], idx)):
+        raise AssertionError(f"knn_exact {label}: two runs on the same input "
+                             "differ")
+    del again
     p_negd, p_idx = knn.knn_exact_plain(x, k)
     torch.cuda.synchronize()
     dk, dp = -negd, -p_negd
+    what = f"knn_exact {label} ({n}x{d}, k={k})"
 
-    rows = torch.arange(n, device="cuda", dtype=torch.int32)
-    if not bool((idx[:, 0] == rows).all()):
-        raise AssertionError(f"knn_exact {n}x{d} k={k}: a row does not "
-                             "start with itself")
+    # the first distance is exactly 0 and belongs to the lowest id among
+    # the row and its exact copies (the row itself where it has none)
+    if bool((dk[:, 0] != 0).any()):
+        raise AssertionError(f"{what}: a first distance is not exactly 0")
+    _, group = torch.unique(x, dim=0, return_inverse=True)
+    rows = torch.arange(n, device="cuda")
+    first = torch.full((n,), n, device="cuda", dtype=torch.int64).scatter_reduce(
+        0, group, rows, reduce="amin")
+    if not bool((idx[:, 0].long() == first[group]).all()):
+        raise AssertionError(f"{what}: a row does not start with the lowest "
+                             "id of its copies")
     if not bool((torch.diff(dk, dim=1) >= 0).all()):
-        raise AssertionError(f"knn_exact {n}x{d} k={k}: distances not "
-                             "ascending")
+        raise AssertionError(f"{what}: distances not ascending")
+    # among equal distances the lower id comes first
+    tied = dk[:, 1:] == dk[:, :-1]
+    if not bool((idx[:, 1:] > idx[:, :-1])[tied].all()):
+        raise AssertionError(f"{what}: ids at equal distance do not ascend")
     err = float((dk - dp).abs().max())
     if err > DIST_ATOL:
-        raise AssertionError(f"knn_exact {n}x{d} k={k}: sorted distances "
-                             f"differ from the plain version by {err}")
-    # the ids must carry the distances reported for them
+        raise AssertionError(f"{what}: sorted distances differ from the "
+                             f"plain version by {err}")
+    kth = dp[:, -1:]
+    rank_err = float(torch.where(kth > 0, (dk - dp).abs() / kth.clamp(
+        min=1e-30), (dk - dp).abs()).max())
+    if rank_err > RANK_RTOL:
+        raise AssertionError(f"{what}: sorted distances differ from the "
+                             f"plain version by {rank_err} of the row's "
+                             "k-th distance")
+    # the ids must carry the distances reported for them, bit for bit: the
+    # kernel's arithmetic is one fmaf chain in coordinate order, which
+    # torch's sum is not, so within float32 rounding
     recomputed = ((x[idx.long()] - x[:, None, :]) ** 2).sum(-1)
-    id_err = float((recomputed - dk).abs().max())
-    if id_err > DIST_ATOL:
-        raise AssertionError(f"knn_exact {n}x{d} k={k}: ids disagree with "
-                             f"their distances by {id_err}")
+    id_err = float(torch.where(kth > 0, (recomputed - dk).abs()
+                               / kth.clamp(min=1e-30),
+                               (recomputed - dk).abs()).max())
+    if id_err > RANK_RTOL:
+        raise AssertionError(f"{what}: ids disagree with their distances by "
+                             f"{id_err}")
     # recall with ties allowed: an id the plain version lacks counts as a
     # miss only if it is strictly closer than the plain k-th distance
     same = (idx.long()[:, :, None] == p_idx.long()[:, None, :]).any(-1)
-    tie = dk >= dp[:, -1:] - DIST_ATOL
+    tie = dk >= kth * (1.0 - RANK_RTOL)
     recall = float((same | tie).float().mean())
-    exact_id_share = float(same.float().mean())
     if recall != 1.0:
-        raise AssertionError(f"knn_exact {n}x{d} k={k}: recall {recall}")
+        raise AssertionError(f"{what}: recall {recall}")
 
-    rec = dict(n=n, d=d, k=k, max_abs_err=err, recall=recall,
-               same_id_share=exact_id_share)
+    rec = dict(label=label, n=n, d=d, k=k, max_abs_err=err,
+               max_rank_err=rank_err, recall=recall,
+               same_id_share=float(same.float().mean()),
+               # candidates whose exact float32 distance the kernel
+               # computed, of the (row, candidate) pairs it met
+               exact_candidates=counters[0], pairs=counters[1],
+               exact_share=counters[0] / max(counters[1], 1))
     if timed:
+        cycles = sum(counters[2:])
+        rec["mma_warp_cycles"] = dict(
+            waiting_for_keys=counters[2] / cycles,
+            filter=counters[3] / cycles, exact_path=counters[4] / cycles)
+        rec["digest"] = knn_digest(negd, idx)
+        rec["device_us_by_kernel"] = device_us_by_kernel(
+            lambda: knn.knn_exact(x, k), 3)
         rec["ms"] = cuda_ms(lambda: knn.knn_exact(x, k), 5)
         rec["plain_ms"] = cuda_ms(lambda: knn.knn_exact_plain(x, k), 2)
         rec["library_ms"] = cuda_ms(lambda: library_knn(x, k), 2)
-        flops = 2.0 * n * n * d
-        nbytes = 4.0 * n * d + 8.0 * n * k
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-        rec["bound_ms"] = 1e3 * max(t_ops, t_bytes)
-        rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        rec.update(knn_bound(n, d, k))
     return rec
+
+
+def device_us_by_kernel(fn, reps):
+    """Device microseconds per call of each CUDA kernel that ``fn``
+    launches (``torch.profiler``, mean over ``reps`` calls), or the reason
+    the profiler gave none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            if us > 0:
+                name = ev.key.replace("(anonymous namespace)::", "")
+                out[name.replace("void ", "").split("(")[0][:60]] = us / reps
+        return out or "no device time in the trace"
+    except Exception as exc:  # the trace is a reading, not a gate
+        return f"not measured: {exc}"
+
+
+def knn_digest(negd, idx):
+    """SHA-256 of the bytes of a kNN result, ids and distances apart, so
+    that a later kernel's output can be held to this one's."""
+    import hashlib
+
+    return dict(
+        ids=hashlib.sha256(idx.cpu().numpy().tobytes()).hexdigest(),
+        neg_sq_dists=hashlib.sha256(negd.cpu().numpy().tobytes()).hexdigest())
+
+
+def knn_bound(n, d, k):
+    """The least time the card could take for an exact self-kNN: its 2 N^2
+    D operations at the card's peak for the type the kernel runs them in,
+    dense TF32 on the tensor cores, times the MMA passes the design spends
+    on them, against its bytes (x read once, the output written once).
+    ``fp32_bound_ms`` keeps the figure the kernel's row had while it ran on
+    the CUDA cores: the same operations at the float32 peak."""
+    flops = 2.0 * n * n * d
+    nbytes = 4.0 * n * d + 8.0 * n * k
+    t_ops = KNN_MMA_PASSES * flops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                mma_passes=KNN_MMA_PASSES,
+                fp32_bound_ms=1e3 * max(flops / PEAK_FP32_FLOPS, t_bytes))
+
+
+def knn_inputs():
+    """(label, x, k) of every ``KNN_CASES`` shape and ``KNN_ATTACKS``
+    input, made from their seeds on the card."""
+    out = [(f"{n}x{d} k={k}", knn_input("random", n, d, seed=i), k)
+           for i, (n, d, k) in enumerate(KNN_CASES)]
+    out += [(label, knn_input(kind, n, d, seed=100 + i), k)
+            for i, (label, n, d, k, kind) in enumerate(KNN_ATTACKS)]
+    return out
 
 
 def random_layout(f_pad, g, d, seed, n_dummy, min_count):
@@ -304,7 +460,7 @@ def check_ivf_case(label, x4, sel, probes, counts, csum, k, g, q_blocks,
     rank_err = float(torch.where(row_scale > 0,
                                  (dk - dp).abs() / row_scale.clamp(min=1e-30),
                                  (dk - dp).abs()).max())
-    if rank_err > IVF_RANK_RTOL:
+    if rank_err > RANK_RTOL:
         raise AssertionError(f"ivf_score {label}: sorted distances differ "
                              f"from the plain version by {rank_err} of the "
                              "row's k-th distance")
@@ -533,8 +689,9 @@ def main_path(ct):
         raise AssertionError("pp.neighbors resolved kNN to "
                              f"{rec['knn_method_resolved']!r}, not the "
                              "exact kernel")
-    if counts.get("knn_exact", 0) < 1:
-        raise AssertionError(f"the main path launched no knn_exact: {counts}")
+    if counts.get("knn_exact", 0) != 1:
+        raise AssertionError("the main path did not launch knn_exact exactly "
+                             f"once: {counts}")
     conn = d.obsp["connectivities"].tocsr()
     if conn.shape != (d.n_obs, d.n_obs) or abs(conn - conn.T).max() != 0:
         raise AssertionError("connectivities are not a symmetric N x N CSR")
@@ -1207,12 +1364,91 @@ def block_formats(ct, dev="cuda", cells_per_sample=2000):
     return out
 
 
-def main() -> int:
+def compare_with_tree(tree, inputs, exact_res):
+    """``--against DIR``: the package of the checkout at ``tree`` runs
+    ``knn_exact`` on ``inputs`` and the 100,000-cell path in a second
+    process on this card; its output must equal this checkout's bit for
+    bit (the kNN results here, ``exact_res`` of phase 4)."""
+    import torch
+
+    from cna_tpu_torch.ops import _build, knn
+
+    work = _build.BUILD_DIR / "against"
+    work.mkdir(parents=True, exist_ok=True)
+    in_path, out_path = work / "inputs.pt", work / "outputs.pt"
+    torch.save({label: (x.cpu(), k) for label, x, k in inputs}, in_path)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--against-worker", tree, str(in_path),
+                          str(out_path)], timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(f"the package at {tree} failed "
+                             f"(exit {res.returncode})")
+    other = torch.load(out_path, weights_only=False)
+    knn_equal = {}
+    for label, x, k in inputs:
+        negd, idx = knn.knn_exact(x, k)
+        o_negd, o_idx = other["knn"][label]
+        knn_equal[label] = (torch.equal(negd.cpu(), o_negd)
+                            and torch.equal(idx.cpu(), o_idx))
+    ncorrs = np.asarray(exact_res.ncorrs)
+    nam = exact_res.nam.to_numpy()
+    rec = dict(tree=tree, other_package=other["package"],
+               seconds=time.perf_counter() - t0, knn_equal=knn_equal,
+               other_launches=other["launches"], p=(exact_res.p, other["p"]),
+               k=(exact_res.k, other["k"]),
+               ncorrs_equal=bool(np.array_equal(ncorrs, other["ncorrs"])),
+               nam_equal=bool(np.array_equal(nam, other["nam"])))
+    if not (all(knn_equal.values()) and rec["ncorrs_equal"]
+            and rec["nam_equal"] and exact_res.p == other["p"]
+            and exact_res.k == other["k"]):
+        raise AssertionError(f"this checkout and {tree} disagree: {rec}")
+    return rec
+
+
+def against_worker(tree, in_path, out_path) -> int:
+    """The second process of ``--against``: the package of the checkout at
+    ``tree`` on the saved inputs and the 100,000-cell path."""
+    import torch
+
+    root = os.path.abspath(tree)
+    sys.path.insert(0, root)
+    import cna_tpu_torch as ct
+    from cna_tpu_torch.ops import knn, launch_counts, reset_launch_counts
+
+    if not os.path.abspath(ct.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {ct.__file__}, not the package at "
+                           f"{root}")
+    outs = {}
+    for label, (x, k) in torch.load(in_path).items():
+        negd, idx = knn.knn_exact(x.cuda(), k)
+        outs[label] = (negd.cpu(), idx.cpu())
+    d, y = dataset(ct, cells_per_sample=2000)
+    reset_launch_counts()
+    ct.pp.pca(d, n_comps=20)
+    ct.pp.neighbors(d, n_neighbors=15, method="auto")
+    res = ct.tl.association(d, y, "id", Nnull=1000, seed=0,
+                            return_full=True)
+    torch.save(dict(package=ct.__file__, knn=outs, p=res.p, k=res.k,
+                    ncorrs=np.asarray(res.ncorrs), nam=res.nam.to_numpy(),
+                    launches=launch_counts()), out_path)
+    return 0
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if argv[:1] == ["--against-worker"] and len(argv) == 4:
+        return against_worker(*argv[1:])
+    against = None
+    if argv:
+        if argv[0] != "--against" or len(argv) != 2:
+            print("usage: chip_smoke.py [--against DIR]", file=sys.stderr)
+            return 2
+        against = argv[1]
     sys.path.insert(0, HERE)
     try:
         import cna_tpu_torch as ct
@@ -1236,14 +1472,18 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "stack frame" in line:
                 log(f"  ptxas {name}:", line.strip())
-    hmma = _build.sass_count(ivf.KERNEL, "HMMA")
-    log(f"build: {hmma} HMMA (tensor-core) opcodes in ivf_score's SASS")
-    if hmma < 1:
-        raise AssertionError("ivf_score was built without tensor-core "
-                             "opcodes")
+    hmma = {}
+    for name in (knn.KERNEL, ivf.KERNEL):
+        hmma[name] = _build.sass_count(name, "HMMA")
+        log(f"build: {hmma[name]} HMMA (tensor-core) opcodes in {name}'s "
+            "SASS")
+        if hmma[name] < 1:
+            raise AssertionError(f"{name} was built without tensor-core "
+                                 "opcodes")
 
-    cases = [check_knn_case(n, d, k, seed=i, timed=(i == 0))
-             for i, (n, d, k) in enumerate(KNN_CASES)]
+    knn_cases = knn_inputs()
+    cases = [check_knn_case(label, x, k, timed=(i == 0))
+             for i, (label, x, k) in enumerate(knn_cases)]
     for rec in cases:
         log("knn_exact vs plain:", json.dumps(rec))
     ivf_cases = ivf_odd_cases() + ivf_attack_cases()
@@ -1256,6 +1496,10 @@ def main() -> int:
     counts, slice_rec, exact_res = main_path(ct)
     log("100k path:", json.dumps(slice_rec))
     log("100k-path launches:", json.dumps(counts))
+    if against is not None:
+        log("against:", json.dumps(compare_with_tree(against, knn_cases,
+                                                     exact_res)))
+    del knn_cases
 
     atlas_counts, atlas_rec, scores_dev, u = atlas_path(ct)
     log("1M path:", json.dumps(atlas_rec))
@@ -1294,7 +1538,19 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "recall": min(c["recall"] for c in cases),
+        "max_rank_err": max(c["max_rank_err"] for c in cases),
         "shape": [main_case["n"], main_case["d"], main_case["k"]],
+        # the bound is the tensor cores' (dense TF32); the same operations
+        # at the float32 peak outside them, which was this row's bound
+        # while the kernel ran there, is kept beside it; what the filter
+        # let through to the exact float32 path, where the MMA warps' cycles
+        # went, and a digest of the main case's output
+        "fp32_bound_ms": main_case["fp32_bound_ms"],
+        "mma_passes": main_case["mma_passes"],
+        "exact_share": main_case["exact_share"],
+        "mma_warp_cycles": main_case["mma_warp_cycles"],
+        "digest": main_case["digest"],
+        "hmma_opcodes": hmma[knn.KERNEL],
     }, {
         # times, bound and yardstick on every IVF_SHARE-th slot of the 1M
         # index (what the plain version is run on); "all_slots" holds the
@@ -1324,7 +1580,7 @@ def main() -> int:
         "mma_passes": ivf_main["mma_passes"],
         "exact_share": ivf_main["exact_share"],
         "same_id_share": ivf_main["same_id_share"],
-        "hmma_opcodes": hmma,
+        "hmma_opcodes": hmma[ivf.KERNEL],
     }, {
         # the in-band product at the 1M-cell manifold graph's own shape;
         # the library yardstick is torch.sparse.mm of the in-band edges
@@ -1360,4 +1616,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

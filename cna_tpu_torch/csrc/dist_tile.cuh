@@ -50,8 +50,14 @@
 // part of the candidate (folded into the accumulator's start) and a part of
 // the row (folded into its threshold); it is tight where |q'| ~ |x'|, which
 // is where the candidates near tau live once c is the block's centroid.
-// `ops/ivf.py:filter_bound` computes eps and gam; the kernels take them as
-// arguments.
+// `ops/_dist_tile.py:filter_bound` computes eps and gam; the kernels take
+// them as arguments.
+//
+// The exact path and the top-k that follow the filter are here too
+// (`exact_sq_dist`, `TopKRegs`, `TopKLocal`, `TopKHeap`), so that both
+// kernels decide their candidates with the same arithmetic: one fmaf chain
+// over the coordinates in order, and a top-k that keeps the first k of the
+// (distance, id) order of candidates met in ascending id order.
 //
 // Why mma.sync and not wgmma.  Measured on the 1,000,000-cell search of
 // ivf_score (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): this design took
@@ -271,6 +277,203 @@ __device__ __forceinline__ float filter_threshold(float tau, float nq,
                                                   float eps, float gam) {
   return fmaf(tau, gam, tau) - nq * (1.f - eps);
 }
+
+// --- the exact path ----------------------------------------------------------
+
+// sum((q - x)^2) in float32 over DQ coordinates (zeros beyond the row's own
+// width add nothing), one fmaf chain in coordinate order: the arithmetic of
+// the package's first kernels, so that a candidate's distance has the same
+// bits whichever kernel computes it.  `q` and `x` are 16-byte aligned.
+template <int DQ>
+__device__ __forceinline__ float exact_sq_dist(const float* q,
+                                               const float* x) {
+  const float4* qv = reinterpret_cast<const float4*>(q);
+  const float4* kv = reinterpret_cast<const float4*>(x);
+  float acc = 0.f;
+#pragma unroll
+  for (int c4 = 0; c4 < DQ / 4; ++c4) {
+    const float4 v = kv[c4];
+    const float4 w = qv[c4];
+    float t = w.x - v.x;
+    acc = fmaf(t, t, acc);
+    t = w.y - v.y;
+    acc = fmaf(t, t, acc);
+    t = w.z - v.z;
+    acc = fmaf(t, t, acc);
+    t = w.w - v.w;
+    acc = fmaf(t, t, acc);
+  }
+  return acc;
+}
+
+constexpr int kMaxTopK = 128;  // the longest top-k of the kernels
+constexpr int kRegK = 16;      // a top-k up to this long lives in registers
+
+// A query row's sorted top-k.  insert() is called only with a distance
+// below worst(); the strict '>' keeps a candidate met earlier ahead of a
+// later one at equal distance, so a caller that meets its candidates in
+// ascending id order keeps the first k of the (distance, id) order.
+//
+// In registers (k <= kRegK): every index is a compile-time constant, and an
+// insertion is kRegK predicated moves, the same for every lane of the warp.
+// Slots at and beyond k take part (they start at +inf and only ever receive
+// what falls off the first k) and are never written out.
+struct TopKRegs {
+  float d[kRegK];
+  int id[kRegK];
+  float kth;
+  __device__ __forceinline__ void init(int, float inf) {
+#pragma unroll
+    for (int s = 0; s < kRegK; ++s) {
+      d[s] = inf;
+      id[s] = 0;
+    }
+    kth = inf;
+  }
+  __device__ __forceinline__ float worst() const { return kth; }
+  __device__ __forceinline__ void insert(int k, float dist, int cand) {
+#pragma unroll
+    for (int s = kRegK - 1; s >= 1; --s) {
+      const bool shift = d[s - 1] > dist;  // d[s - 1] moves down to s
+      const bool here = !shift && d[s] > dist;
+      id[s] = shift ? id[s - 1] : (here ? cand : id[s]);
+      d[s] = shift ? d[s - 1] : (here ? dist : d[s]);
+    }
+    if (d[0] > dist) {
+      d[0] = dist;
+      id[0] = cand;
+    }
+#pragma unroll
+    for (int s = 0; s < kRegK; ++s) {
+      if (s == k - 1) kth = d[s];
+    }
+  }
+  // entries that were never filled (fewer than k candidates met, or a row
+  // that is not live) are written as -inf with id 0
+  __device__ __forceinline__ void write(int k, bool live, float inf,
+                                        float* out_negd, int* out_idx) const {
+#pragma unroll
+    for (int s = 0; s < kRegK; ++s) {
+      if (s < k) {
+        const bool found = live && d[s] < inf;
+        out_negd[s] = found ? -d[s] : -inf;
+        out_idx[s] = found ? id[s] : 0;
+      }
+    }
+  }
+};
+
+// In thread-local memory (k up to kMaxTopK): a sorted insertion that shifts
+// the tail one slot at a time.
+struct TopKLocal {
+  float d[kMaxTopK];
+  int id[kMaxTopK];
+  float kth;
+  __device__ __forceinline__ void init(int k, float inf) {
+    for (int s = 0; s < k; ++s) {
+      d[s] = inf;
+      id[s] = 0;
+    }
+    kth = inf;
+  }
+  __device__ __forceinline__ float worst() const { return kth; }
+  __device__ __forceinline__ void insert(int k, float dist, int cand) {
+    int s = k - 1;
+    while (s > 0 && d[s - 1] > dist) {
+      d[s] = d[s - 1];
+      id[s] = id[s - 1];
+      --s;
+    }
+    d[s] = dist;
+    id[s] = cand;
+    kth = d[k - 1];
+  }
+  __device__ __forceinline__ void write(int k, bool live, float inf,
+                                        float* out_negd, int* out_idx) const {
+    for (int s = 0; s < k; ++s) {
+      const bool found = live && d[s] < inf;
+      out_negd[s] = found ? -d[s] : -inf;
+      out_idx[s] = found ? id[s] : 0;
+    }
+  }
+};
+
+// In thread-local memory (k up to kMaxTopK) as a max-heap on (distance, id):
+// an insertion touches one root-to-leaf path (log2 k entries, the upper
+// levels shared by every insertion and so kept in L1) instead of the tail of
+// a sorted list.  Candidates come in ascending id order, so a new one is
+// larger in (distance, id) than every entry of equal distance: it enters
+// when its distance is below the root's and evicts the root, the largest
+// entry in that order.  The set kept is the first k of the (distance, id)
+// order, as with a sorted insertion, and write() sorts it so (heap sort).
+// It breaks ties by id, so it serves a caller that meets its candidates in
+// ascending id order (knn_exact); ivf_score meets them in probe order and
+// keeps TopKLocal, whose ties go to the candidate met first.
+struct TopKHeap {
+  float d[kMaxTopK];
+  int id[kMaxTopK];
+  int size;
+  float kth;
+  __device__ __forceinline__ static bool above(float da, int ia, float db,
+                                               int ib) {
+    return da > db || (da == db && ia > ib);
+  }
+  __device__ __forceinline__ void init(int, float inf) {
+    size = 0;
+    kth = inf;
+  }
+  __device__ __forceinline__ float worst() const { return kth; }
+  // move (dist, cand) down from the root of the heap d[0 .. n)
+  __device__ __forceinline__ void sift_down(int n, float dist, int cand) {
+    int i = 0;
+    for (;;) {
+      int c = 2 * i + 1;
+      if (c >= n) break;
+      if (c + 1 < n && above(d[c + 1], id[c + 1], d[c], id[c])) ++c;
+      if (!above(d[c], id[c], dist, cand)) break;
+      d[i] = d[c];
+      id[i] = id[c];
+      i = c;
+    }
+    d[i] = dist;
+    id[i] = cand;
+  }
+  __device__ __forceinline__ void insert(int k, float dist, int cand) {
+    if (size < k) {  // filling: sift up
+      int i = size++;
+      while (i > 0) {
+        const int p = (i - 1) >> 1;
+        if (!above(dist, cand, d[p], id[p])) break;
+        d[i] = d[p];
+        id[i] = id[p];
+        i = p;
+      }
+      d[i] = dist;
+      id[i] = cand;
+      if (size == k) kth = d[0];
+    } else {  // full: the new entry replaces the root
+      sift_down(k, dist, cand);
+      kth = d[0];
+    }
+  }
+  // sorts the heap in place into ascending (distance, id) order, then
+  // writes it; entries never filled are -inf with id 0
+  __device__ __forceinline__ void write(int k, bool live, float inf,
+                                        float* out_negd, int* out_idx) {
+    for (int end = size - 1; end > 0; --end) {
+      const float last_d = d[end];
+      const int last_id = id[end];
+      d[end] = d[0];
+      id[end] = id[0];
+      sift_down(end, last_d, last_id);
+    }
+    for (int s = 0; s < k; ++s) {
+      const bool found = live && s < size && d[s] < inf;
+      out_negd[s] = found ? -d[s] : -inf;
+      out_idx[s] = found ? id[s] : 0;
+    }
+  }
+};
 
 // --- staging: one contiguous run from global to shared memory, completion
 // on an mbarrier (cp.async.bulk, the linear form of the TMA) ---------------

@@ -34,7 +34,8 @@
 // which ran there, took 272 ms); that figure is kept beside the bound as
 // the earlier yardstick and is no bound of this design.
 //
-// Design (dist_tile.cuh holds the tile product, the filter and its proof):
+// Design (dist_tile.cuh holds the tile product, the filter and its proof,
+// the exact distance and the top-k):
 //   * one thread block per query block (grid = slots x q_blocks), max(g, 32)
 //     threads; a warp owns 32 query rows as two 16-row MMA tiles whose A
 //     operands (-2 (q - c), TF32, c the query block's centroid) stay in
@@ -90,12 +91,11 @@ namespace {
 
 namespace dt = dist_tile;
 
-constexpr int kMaxK = 128;
+constexpr int kMaxK = dt::kMaxTopK;
 constexpr int kMaxG = 128;
 constexpr int kMaxD = 128;
 constexpr int kBlocksPerSm = 4;  // aimed at for rows of up to 32 floats
 constexpr int kMT = 2;  // 16-row query tiles to a warp
-constexpr int kRegK = 16;  // a top-k up to this long lives in registers
 constexpr int kKeyPad = 8 * dt::kBatch;  // key tiles hold whole batches
 constexpr unsigned kFullWarp = 0xffffffffu;
 
@@ -122,92 +122,6 @@ constexpr size_t smem_bytes(int g, int threads, int n_stage) {
          sizeof(float) * static_cast<size_t>(g) * DQ * (1 + n_stage) +
          sizeof(float) * key_rows(g) * (BS + 1);
 }
-
-// A query row's sorted top-k.  insert() is called only with a distance
-// below worst(); the strict '>' keeps a candidate met earlier ahead of a
-// later one at equal distance.
-//
-// In registers (k <= kRegK): every index is a compile-time constant, and an
-// insertion is kRegK predicated moves, the same for every lane of the warp.
-// Slots at and beyond k take part (they start at +inf and only ever receive
-// what falls off the first k) and are never written out.
-struct TopKRegs {
-  float d[kRegK];
-  int id[kRegK];
-  float kth;
-  __device__ __forceinline__ void init(int, float inf) {
-#pragma unroll
-    for (int s = 0; s < kRegK; ++s) {
-      d[s] = inf;
-      id[s] = 0;
-    }
-    kth = inf;
-  }
-  __device__ __forceinline__ float worst() const { return kth; }
-  __device__ __forceinline__ void insert(int k, float dist, int cand) {
-#pragma unroll
-    for (int s = kRegK - 1; s >= 1; --s) {
-      const bool shift = d[s - 1] > dist;  // d[s - 1] moves down to s
-      const bool here = !shift && d[s] > dist;
-      id[s] = shift ? id[s - 1] : (here ? cand : id[s]);
-      d[s] = shift ? d[s - 1] : (here ? dist : d[s]);
-    }
-    if (d[0] > dist) {
-      d[0] = dist;
-      id[0] = cand;
-    }
-#pragma unroll
-    for (int s = 0; s < kRegK; ++s) {
-      if (s == k - 1) kth = d[s];
-    }
-  }
-  __device__ __forceinline__ void write(int k, bool live, float inf,
-                                        float* out_negd, int* out_idx) const {
-#pragma unroll
-    for (int s = 0; s < kRegK; ++s) {
-      if (s < k) {
-        const bool found = live && d[s] < inf;
-        out_negd[s] = found ? -d[s] : -inf;
-        out_idx[s] = found ? id[s] : 0;
-      }
-    }
-  }
-};
-
-// In thread-local memory (k up to kMaxK): a sorted insertion that shifts the
-// tail one slot at a time.
-struct TopKLocal {
-  float d[kMaxK];
-  int id[kMaxK];
-  float kth;
-  __device__ __forceinline__ void init(int k, float inf) {
-    for (int s = 0; s < k; ++s) {
-      d[s] = inf;
-      id[s] = 0;
-    }
-    kth = inf;
-  }
-  __device__ __forceinline__ float worst() const { return kth; }
-  __device__ __forceinline__ void insert(int k, float dist, int cand) {
-    int s = k - 1;
-    while (s > 0 && d[s - 1] > dist) {
-      d[s] = d[s - 1];
-      id[s] = id[s - 1];
-      --s;
-    }
-    d[s] = dist;
-    id[s] = cand;
-    kth = d[k - 1];
-  }
-  __device__ __forceinline__ void write(int k, bool live, float inf,
-                                        float* out_negd, int* out_idx) const {
-    for (int s = 0; s < k; ++s) {
-      const bool found = live && d[s] < inf;
-      out_negd[s] = found ? -d[s] : -inf;
-      out_idx[s] = found ? id[s] : 0;
-    }
-  }
-};
 
 template <int DQ, typename TopK>
 __global__ void __launch_bounds__(kMaxG, DQ <= 32 ? kBlocksPerSm : 1)
@@ -437,23 +351,7 @@ ivf_score_kernel(const float* __restrict__ x4, const int* __restrict__ sel,
               const int j = 32 * wd + __ffs(bits) - 1;
               bits &= bits - 1;
               ++n_exact;
-              const float4* kv =
-                  reinterpret_cast<const float4*>(tile + j * DQ);
-              const float4* qv = reinterpret_cast<const float4*>(qrow);
-              float acc = 0.f;
-#pragma unroll
-              for (int c4 = 0; c4 < DQ / 4; ++c4) {
-                const float4 v = kv[c4];
-                const float4 q = qv[c4];
-                float t = q.x - v.x;
-                acc = fmaf(t, t, acc);
-                t = q.y - v.y;
-                acc = fmaf(t, t, acc);
-                t = q.z - v.z;
-                acc = fmaf(t, t, acc);
-                t = q.w - v.w;
-                acc = fmaf(t, t, acc);
-              }
+              const float acc = dt::exact_sq_dist<DQ>(qrow, tile + j * DQ);
               if (acc < best.worst()) best.insert(k, acc, base_id + j);
             }
           }
@@ -539,8 +437,8 @@ extern "C" int ivf_score_max_d() { return kMaxD; }
 // one of the compiled widths (4, 8, ..., 32, 48, 64, 96, 128); sel (ns,),
 // probes (ns, n_probe), counts and csum (f_pad,) int32; out_negd and out_idx
 // (ns, q_blocks * g, k), allocated by the caller.  eps and gam are the
-// filter's error terms for this width (ops/ivf.py:filter_bound; too small a
-// value loses neighbours, a larger one only costs time).  stats is null or
+// filter's error terms for this width (ops/_dist_tile.py:filter_bound; too
+// small a value loses neighbours, a larger one only costs time).  stats is null or
 // two uint64 counters that the launch adds to: candidates that reached the
 // exact path, live row-candidate pairs.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); does not synchronise.
@@ -557,16 +455,17 @@ extern "C" int ivf_score_launch(const float* x4, const int* sel,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define IVF_SCORE_CASE(W)                                                   \
-  case W:                                                                   \
-    return static_cast<int>(                                                \
-        k <= kRegK                                                          \
-            ? launch<W, TopKRegs>(x4, sel, probes, counts, csum, ns, f_pad, \
-                                  g, q_blocks, n_probe, k, eps, gam,        \
-                                  out_negd, out_idx, stats, s)              \
-            : launch<W, TopKLocal>(x4, sel, probes, counts, csum, ns,       \
-                                   f_pad, g, q_blocks, n_probe, k, eps,     \
-                                   gam, out_negd, out_idx, stats, s))
+#define IVF_SCORE_CASE(W)                                                  \
+  case W:                                                                  \
+    return static_cast<int>(                                               \
+        k <= dt::kRegK                                                     \
+            ? launch<W, dt::TopKRegs>(x4, sel, probes, counts, csum, ns,   \
+                                      f_pad, g, q_blocks, n_probe, k, eps, \
+                                      gam, out_negd, out_idx, stats, s)    \
+            : launch<W, dt::TopKLocal>(x4, sel, probes, counts, csum, ns,  \
+                                       f_pad, g, q_blocks, n_probe, k,     \
+                                       eps, gam, out_negd, out_idx, stats, \
+                                       s))
   switch (d_pad) {
     IVF_SCORE_CASE(4);
     IVF_SCORE_CASE(8);

@@ -33,7 +33,9 @@ uses them only to decide which candidates it looks at exactly; the
 returned distances are direct float32 sums of ``(q - x)^2`` and the
 returned set is the exact float32 top-k.  ``filter_bound`` gives the two
 error terms of that decision (derived in ``csrc/dist_tile.cuh``, which
-also holds the rule they enter, ``filter_threshold``).
+also holds the rule they enter, ``filter_threshold``); it and the compiled
+widths (``D_PADS``, ``kernel_d_pad``) live in ``ops/_dist_tile.py``, shared
+with the exact kNN kernel, and are importable from here.
 """
 
 from __future__ import annotations
@@ -43,47 +45,15 @@ import ctypes
 import torch
 
 from . import _build
+from ._dist_tile import D_PADS, filter_bound, kernel_d_pad  # noqa: F401
 
 KERNEL = "ivf_score"
 CANDS_PER_STEP = 16  # probe lists are padded to a multiple of this
 MAX_K = 128  # must match kMaxK in csrc/ivf_score.cu
 MAX_G = 128  # must match kMaxG
 MAX_D = 128  # must match kMaxD
-# the layout widths the kernel is compiled for
-D_PADS = (4, 8, 12, 16, 20, 24, 28, 32, 48, 64, 96, 128)
 # elements of the plain version's (slots, rows, candidates) distance tile
 _PLAIN_TILE_ELEMS = 1 << 26
-
-
-def kernel_d_pad(d: int) -> int:
-    """The layout width for ``d`` coordinates: the smallest width the
-    kernel is compiled for (rows then start on 16-byte boundaries)."""
-    for w in D_PADS:
-        if w >= d:
-            return w
-    raise ValueError(f"ivf_score supports at most {MAX_D} coordinates; "
-                     f"got {d}")
-
-
-def filter_bound(d_pad: int) -> tuple:
-    """``(eps, gam)`` of the kernel's candidate filter for a layout width.
-
-    With ``q'`` and ``x'`` the rows centred on the query block's centroid,
-    the TF32 key ``T = (1 - eps) |x'|^2 - 2 q'.x'`` satisfies
-    ``|q - x|^2 >= T + (1 - eps) |q'|^2`` and a candidate is dropped only
-    when ``T >= tau (1 + gam) - (1 - eps) |q'|^2``, which no candidate
-    whose float32 distance beats the row's current k-th distance ``tau``
-    can reach (``csrc/dist_tile.cuh``).  ``v = 2^-10`` covers both
-    rounding to nearest and truncation to TF32's 11 significand bits,
-    ``u = 2^-24`` is float32's unit roundoff, and the products run in
-    ``ceil(d_pad / 8)`` k-steps."""
-    if not 1 <= d_pad <= MAX_D:
-        raise ValueError(f"d_pad must lie in [1, {MAX_D}]; got {d_pad}")
-    u, v = 2.0 ** -24, 2.0 ** -10
-    k_steps = -(-d_pad // 8)
-    eps = 2 * v + v * v + (36 * k_steps + 2 * d_pad + 16) * u
-    gam = 2 * (d_pad + 8) * u
-    return eps, gam
 
 
 def _check(x4, sel_ids, probe_ids, blk_counts, blk_csum, k, g, q_blocks):

@@ -51,6 +51,85 @@ def test_kernel_matches_plain(n, d, k):
     assert float((recomputed + negd).abs().max()) <= F32_DIST_ATOL
 
 
+def _assert_exact_knn(x, k):
+    """knn_exact on the card against its plain version: the first distance
+    exactly 0 and owned by the lowest id among the row's exact copies,
+    distances ascending and within 1e-4 of the row's k-th distance rank by
+    rank, ids at equal distance ascending, recall 1 with ties, the ids
+    carrying their distances, one launch, and the same bits twice."""
+    n = x.shape[0]
+    before = _build.launch_counts().get(knn_ops.KERNEL, 0)
+    stats = torch.zeros(knn_ops.N_STATS, dtype=torch.int64, device="cuda")
+    negd, idx = knn_ops.knn_exact(x, k, stats=stats)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[knn_ops.KERNEL] == before + 1
+    assert int(stats[1]) == n * n and 0 < int(stats[0]) <= n * n
+    pn, pi = knn_ops.knn_exact_plain(x, k)
+    dk, dp = -negd, -pn
+    assert bool((dk[:, 0] == 0).all())
+    _, group = torch.unique(x, dim=0, return_inverse=True)
+    rows = torch.arange(n, device="cuda")
+    first = torch.full((n,), n, device="cuda").scatter_reduce(
+        0, group, rows, reduce="amin")
+    assert bool((idx[:, 0].long() == first[group]).all())
+    assert bool((torch.diff(dk, dim=1) >= 0).all())
+    tied = dk[:, 1:] == dk[:, :-1]
+    assert bool((idx[:, 1:] > idx[:, :-1])[tied].all())
+    kth = dp[:, -1:]
+    err = torch.where(kth > 0, (dk - dp).abs() / kth.clamp(min=1e-30),
+                      (dk - dp).abs())
+    assert float(err.max()) <= 1e-4
+    same = (idx.long()[:, :, None] == pi.long()[:, None, :]).any(-1)
+    assert bool((same | (dk >= kth * (1 - 1e-4))).all())
+    recomputed = ((x[idx.long()] - x[:, None, :]) ** 2).sum(-1)
+    assert float(torch.where(kth > 0, (recomputed - dk).abs()
+                             / kth.clamp(min=1e-30),
+                             (recomputed - dk).abs()).max()) <= 1e-4
+    again = knn_ops.knn_exact(x, k)
+    assert torch.equal(again[0], negd) and torch.equal(again[1], idx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [3, 8, 12, 16, 20, 24, 28, 32, 40, 64, 96, 128])
+@pytest.mark.parametrize("k", [1, 15, 64, 128])
+def test_knn_exact_every_width_and_k(d, k):
+    """Every compiled width, both homes of the top-k (registers up to 16,
+    the heap beyond), N not a multiple of the 128 rows of a block."""
+    need_cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(d * 1000 + k)
+    _assert_exact_knn(torch.randn(1_501, d, generator=gen, device="cuda"), k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attack", ["offset", "tiny_spread", "duplicates",
+                                    "identical", "clusters"])
+@pytest.mark.parametrize("k", [1, 15, 64, 128])
+def test_knn_exact_filter_attacks(attack, k):
+    """Inputs chosen against the TF32 candidate filter: a common offset a
+    thousand times the spread, the same with a spread float32 barely
+    resolves, every point four times, a block of 300 identical rows (more
+    than a thread block's rows), and tight clusters far apart."""
+    need_cuda()
+    n, d = 2_000, 20
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(k)
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    if attack == "offset":
+        x = x + 1000.0
+    elif attack == "tiny_spread":
+        x = x * 1e-3 + 1000.0
+    elif attack == "duplicates":
+        x = x[: n // 4].repeat(4, 1)[torch.randperm(n, generator=gen,
+                                                     device="cuda")]
+    elif attack == "identical":
+        x[100:400] = x[100]
+    else:
+        x = x + 300.0 * torch.randn(8, d, generator=gen, device="cuda"
+                                    ).repeat_interleave(n // 8, 0)
+    _assert_exact_knn(x.contiguous(), k)
+
+
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_cannot_take():
     need_cuda()
@@ -61,6 +140,10 @@ def test_kernel_rejects_what_it_cannot_take():
     with pytest.raises(TypeError, match="float32"):
         knn_ops.knn_exact(torch.randn(30, 4, device="cuda",
                                       dtype=torch.float64), 3)
+    with pytest.raises(ValueError, match="stats"):
+        knn_ops.knn_exact(torch.randn(30, 4, device="cuda"), 3,
+                          stats=torch.zeros(2, dtype=torch.int64,
+                                            device="cuda"))
 
 
 def _random_layout(f_pad, g, d, n_dummy, min_count=1):
@@ -311,7 +394,6 @@ def test_banded_kernel_matches_plain(n, s, row_tile, window, dtype):
         <= tol * float(want.abs().max())
 
 
-@pytest.mark.gpu
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("fill", ["full", "ragged", "empty"])
