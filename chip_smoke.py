@@ -38,10 +38,35 @@ Phases, each of which must pass (any failure exits non-zero):
    twice, every diffusion step through the banded SpMM kernel; held to
    the default format's result, and the kernel timed at that graph's own
    shape beside its plain version, its bound and ``torch.sparse.mm``;
-9. 'block' and 'hybrid' at 100,000 cells (manifold), each held to 'ell'.
+9. 'block' and 'hybrid' at 100,000 cells (manifold), each held to 'ell';
+10. the atlas entry path at 100,000 cells: a sparse count matrix of 50
+    samples x 2,000 cells x 20,000 genes (about 1,000 non-zeros a cell,
+    the first 50 genes carrying the case signal of the trajectory data)
+    made on the card ->
+    ``pp.select_hvg(n_top=2000)`` (the same genes as on the CPU from the
+    same matrix, the 50 signal genes among them) -> ``pp.pca(n_comps=50)``
+    -> ``pp.neighbors`` (one exact kNN kernel launch) -> ``tl.association``
+    (p < 0.05) -> ``pp.umap`` twice (spectral init, 200 epochs, the same
+    bits both times, ``tests/test_umap.py``'s layout quality bar).  With
+    h5py the matrix first goes through ``write_h5ad`` -> ``read_h5ad``
+    and the result through ``CellData.write`` -> ``read_h5ad`` (X, obs,
+    obsm and obsp equal bit for bit); with matplotlib ``pl.umap_ncorr``
+    and ``pl.violinplot`` draw a PNG.  Neither package is a dependency of
+    the port: without h5py the path starts from and stops at the
+    in-memory CellData, without matplotlib it draws no picture, and the
+    line before the path says which steps ran.  The file and plot layers
+    are held to the TPU package by the CPU tests
+    (``tests/test_torch_io.py``, ``tests/test_torch_umap.py``).
 
-Each path of phases 4, 5 and 8 runs with the kernel launch counts set to
-0 just before it and read just after.
+Phase 5 also lays out its 1,000,000-cell IVF graph with ``pp.umap``
+(init 'auto' -> 'pca', 200 epochs): the edge, init and SGD seconds, ms per
+epoch (CUDA events, a second run of the epochs held to the first bit for
+bit), the least bytes an epoch moves and their time at the card's memory
+rate, and the layout quality bar on 2,000 cells.
+
+Each path of phases 4, 5, 8 and 10 runs with the kernel launch counts set
+to 0 just before it (phase 10: before ``pp.neighbors``) and read just
+after.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the ``{"ok": true, "device": ...}`` line.  Without a CUDA
@@ -60,11 +85,13 @@ for bit.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -142,6 +169,22 @@ BANDED_RTOL = {"float32": 1e-5, "float64": 1e-12}
 FORMAT_NAM_RTOL = 1e-4
 FORMAT_NCORR_MIN = 0.9999
 FORMAT_NSTEPS = 3  # diffusion steps of the fixed-step NAM comparisons
+
+# phase 10, the atlas entry path: 20,000 genes, the first 50 carrying
+# synthetic_dataset's case signal (its continuous trajectories, structure
+# 'manifold') as Poisson counts of SIGNAL_SCALE * exp(SIGNAL_GAIN * z), z
+# each gene's values standardised; the rest background genes whose means
+# are lognormal, exp(N(-3.95, 1.5^2)): about 1,000 non-zeros a cell in all
+ATLAS_GENES = 20_000
+SIGNAL_GENES = 50
+SIGNAL_SCALE = 2.0
+SIGNAL_GAIN = 1.0
+BACKGROUND_LOG_MEAN = -3.95
+BACKGROUND_LOG_SD = 1.5
+HVG_TOP = 2000
+# tests/test_umap.py's layout quality bar
+UMAP_RATIO_MAX = 0.35
+UMAP_NULL_MIN = 0.8
 
 
 def log(*parts):
@@ -774,8 +817,9 @@ def drive_path(ct, d, y, method):
 
 
 def atlas_path(ct):
-    """The 1,000,000-cell path at full size, nothing cut; returns (launch
-    counts, record, the PCA scores on the card, the calibrated u)."""
+    """The 1,000,000-cell path at full size, nothing cut, then ``pp.umap``
+    on its IVF graph (``umap_record``); returns (launch counts, record, the
+    PCA scores on the card, the calibrated u)."""
     import warnings
 
     from cna_tpu_torch.pp.pca import device_rep
@@ -801,6 +845,7 @@ def atlas_path(ct):
         raise AssertionError(f"IVF recall below {IVF_MIN_RECALL}: {info}; "
                              f"{recall_warnings}")
     scores_dev = device_rep(d, d.obsm["X_pca"])
+    rec["umap"] = umap_record(ct, d, "cuda", cells=2000, timed=True)
     return counts, rec, scores_dev, int(info["u"])
 
 
@@ -1364,6 +1409,285 @@ def block_formats(ct, dev="cuda", cells_per_sample=2000):
     return out
 
 
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def count_data(ct, dev, n_samples, cells_per_sample, n_genes, chunk=4096):
+    """An atlas-like sparse count matrix made on ``dev`` from fixed seeds:
+    ``n_samples`` x ``cells_per_sample`` cells x ``n_genes`` genes, a
+    scipy CSR float32 X on the host.  Its first ``SIGNAL_GENES`` genes carry
+    ``synthetic_dataset``'s case signal (trajectories, seed 0) as Poisson
+    counts of ``SIGNAL_SCALE * exp(SIGNAL_GAIN * z)``, z each gene's values
+    standardised; the rest are background genes, Poisson counts of gene
+    means drawn lognormal (seed 1).  Returns (CellData, phenotype)."""
+    import pandas as pd
+    import scipy.sparse as sp
+    import torch
+
+    ct.config.set_device(dev)
+    ct.config.enable_x64(False)
+    base, samplem = ct.data.synthetic_dataset(
+        n_samples=n_samples, cells_per_sample=cells_per_sample,
+        n_genes=SIGNAL_GENES, seed=0, structure="manifold")
+    n = base.n_obs
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    mu = torch.exp(BACKGROUND_LOG_MEAN + BACKGROUND_LOG_SD * torch.randn(
+        n_genes - SIGNAL_GENES, generator=gen, device=dev))
+    x_sig = torch.as_tensor(base.X, device=dev)
+    x_sig = (x_sig - x_sig.mean(0)) / x_sig.std(0)
+    row_nnz, cols, vals = [], [], []
+    for lo in range(0, n, chunk):
+        lam = torch.cat([SIGNAL_SCALE * torch.exp(
+            SIGNAL_GAIN * x_sig[lo:lo + chunk]),
+                         mu.expand(min(chunk, n - lo), -1)], dim=1)
+        counts = torch.poisson(lam, generator=gen)
+        nz = counts.nonzero()  # row-major
+        row_nnz.append(torch.bincount(nz[:, 0], minlength=lam.shape[0]).cpu())
+        cols.append(nz[:, 1].to(torch.int32).cpu())
+        vals.append(counts[nz[:, 0], nz[:, 1]].cpu())
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(torch.cat(row_nnz).numpy(), out=indptr[1:])
+    x = sp.csr_matrix((torch.cat(vals).numpy(), torch.cat(cols).numpy(),
+                       indptr), shape=(n, n_genes))
+    var = pd.DataFrame(index=pd.Index([f"gene_{i}" for i in range(n_genes)],
+                                      name="gene"))
+    d = ct.CellData(X=x, obs=base.obs, var=var, samplem=samplem,
+                    sid_name="id")
+    return d, samplem["case"].astype(float)
+
+
+def layout_ratio(emb, knn, cells, seed):
+    """``tests/test_umap.py``'s layout quality on ``cells`` sampled cells
+    (``knn``: the directed kNN CSR): mean 2-D distance to their kNN
+    neighbours over that to random cells, for the layout and for a
+    shuffled copy of it.  Returns (ratio, shuffled ratio)."""
+    rng = np.random.RandomState(seed)
+    n = emb.shape[0]
+    sample = rng.choice(n, cells, replace=False)
+
+    def ratio(e):
+        num, den = [], []
+        for i in sample:
+            nbrs = knn.indices[knn.indptr[i]:knn.indptr[i + 1]]
+            rand = rng.randint(0, n, len(nbrs))
+            num.append(np.linalg.norm(e[nbrs] - e[i], axis=1).mean())
+            den.append(np.linalg.norm(e[rand] - e[i], axis=1).mean())
+        return float(np.mean(num) / np.mean(den))
+
+    return ratio(emb), ratio(emb[rng.permutation(n)])
+
+
+def epoch_bytes(groups, n, n_epochs, r_neg=5):
+    """Least bytes an epoch of the UMAP engine moves, averaged over
+    ``n_epochs``: each due edge reads its two endpoint rows (8 B each), its
+    head and tail ids (4 B each), its window index (4 B) and its window of
+    ``r_neg`` rows (8 B each); the negative table's refresh reads its ids
+    and rows and writes its rows (4 + 8 + 8 B an entry); the positions are
+    read and written once (8 B a row each way)."""
+    per_edge = 2 * 8 + 2 * 4 + 4 + r_neg * 8
+    table = (n // r_neg) * r_neg * (4 + 8 + 8)
+    total = 0.0
+    for i in range(n_epochs):
+        due = sum(g["heads"].shape[0] for g in groups
+                  if (i + 1) % g["period"] == 0)
+        total += due * per_edge + table + 2 * 8 * n
+    return total / n_epochs
+
+
+def umap_record(ct, d, dev, cells, timed, n_epochs=200):
+    """``pp.umap`` on ``d``'s graph (init 'auto', seed 0) through the
+    public entry point, then again with the same seed, held to the first
+    run bit for bit: with ``timed``, its epochs alone on the same start
+    and groups, timed with CUDA events; else a second ``pp.umap``.  The
+    layout quality on ``cells`` sampled cells.  Returns a record."""
+    import importlib
+
+    import torch
+
+    from cna_tpu_torch.utils import profiling
+
+    um = importlib.import_module("cna_tpu_torch.pp.umap")
+    prof = profiling.global_profiler()
+    first = len(prof.phases)
+    t0 = time.perf_counter()
+    emb = ct.pp.umap(d, seed=0)
+    rec = dict(cells=d.n_obs, umap_s=time.perf_counter() - t0,
+               phases={p["phase"]: p["seconds"]
+                       for p in prof.phases[first:]},
+               init=d.uns["umap"]["init"], epochs=n_epochs)
+    conn = d.obsp["connectivities"]
+    heads, tails, eps = um._umap_edges(conn, n_epochs)
+    groups = um._period_structure(heads, tails, eps, d.n_obs)
+    rec["edges"] = int(heads.shape[0])
+    rec["groups"] = [(g["period"], int(g["heads"].shape[0]))
+                     for g in groups]
+    if timed:
+        pos0, _ = um.initial_layout(d, conn, rec["init"], seed=0)
+        pos0 = torch.as_tensor(pos0, device=dev)
+        a, b = um._fit_ab()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        again = um._optimize_layout(pos0, groups, a, b, n_epochs, seed=0)
+        stop.record()
+        torch.cuda.synchronize()
+        rec["ms_per_epoch"] = start.elapsed_time(stop) / n_epochs
+        again = again.cpu().numpy()
+    else:
+        again = ct.pp.umap(d, seed=0, key_added="X_umap_again")
+        del d.obsm["X_umap_again"]
+    rec["same_bits_twice"] = bool(np.array_equal(again, emb))
+    nbytes = epoch_bytes(groups, d.n_obs, n_epochs)
+    rec["epoch_bytes"] = nbytes
+    rec["epoch_bound_ms"] = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ratio, ratio_null = layout_ratio(emb, d.obsp["distances"].tocsr(),
+                                     cells, seed=0)
+    rec.update(quality_ratio=ratio, shuffled_ratio=ratio_null,
+               finite=bool(np.isfinite(emb).all()))
+    failed = []
+    if not rec["same_bits_twice"]:
+        failed.append("two runs of the same seed differ")
+    if not (rec["finite"] and emb.shape == (d.n_obs, 2)):
+        failed.append("layout shape or finiteness")
+    if not (ratio < UMAP_RATIO_MAX and ratio_null > UMAP_NULL_MIN):
+        failed.append("layout quality")
+    if failed:
+        raise AssertionError(f"pp.umap at {d.n_obs} cells: {failed}: {rec}")
+    return rec
+
+
+def frames_equal(a, b):
+    """Two DataFrames hold the same columns with the same values (and the
+    same index labels), bit for bit."""
+    if list(a.columns) != list(b.columns) or not np.array_equal(
+            a.index.to_numpy().astype(str), b.index.to_numpy().astype(str)):
+        return False
+    return all(np.array_equal(np.asarray(a[c]), np.asarray(b[c]))
+               for c in a.columns)
+
+
+def csr_equal(a, b):
+    return (a.shape == b.shape and np.array_equal(a.indptr, b.indptr)
+            and np.array_equal(a.indices, b.indices)
+            and np.array_equal(a.data, b.data) and a.dtype == b.dtype)
+
+
+def atlas_entry_path(ct, dev="cuda", n_samples=50, cells_per_sample=2000,
+                     n_genes=ATLAS_GENES, with_files=True, with_plots=True,
+                     workdir=None):
+    """Phase 10: a sparse count atlas through the user's whole path on
+    ``dev``: (``write_h5ad`` -> ``read_h5ad``, with h5py) ->
+    ``pp.select_hvg`` (held to the CPU's choice from the same matrix) ->
+    ``pp.pca(n_comps=50)`` -> ``pp.neighbors`` (one ``knn_exact`` launch,
+    counts reset before and read after) -> ``tl.association`` -> ``pp.umap``
+    (spectral, 200 epochs, twice) -> (``pl.umap_ncorr`` and
+    ``pl.violinplot`` to a PNG, with matplotlib) -> (``CellData.write`` ->
+    ``read_h5ad``, equal bit for bit, with h5py).  Returns (launch counts,
+    record)."""
+    import torch
+
+    from cna_tpu_torch.ops import launch_counts, reset_launch_counts
+    from cna_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    d, y = count_data(ct, dev, n_samples, cells_per_sample, n_genes)
+    rec = dict(cells=d.n_obs, genes=n_genes, nnz=int(d.X.nnz),
+               nnz_per_cell=d.X.nnz / d.n_obs,
+               make_data_s=time.perf_counter() - t0,
+               with_files=with_files, with_plots=with_plots)
+    # the CPU's choice from the same matrix
+    t0 = time.perf_counter()
+    ct.config.set_device("cpu")
+    keep_cpu = ct.pp.select_hvg(ct.CellData(X=d.X), n_top=HVG_TOP,
+                                subset=False)
+    ct.config.set_device(dev)
+    rec["cpu_select_hvg_s"] = time.perf_counter() - t0
+
+    prof = profiling.enable_profiling()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t_path = time.perf_counter()
+    if with_files:
+        path = os.path.join(workdir, "atlas.h5ad")
+        x_written = d.X
+        ct.data.write_h5ad(d, path)
+        rec["file_mb"] = os.path.getsize(path) / 1e6
+        d = ct.read_h5ad(path)
+        rec["read_X_equal"] = csr_equal(x_written, d.X)
+        del x_written
+    keep = ct.pp.select_hvg(d, n_top=HVG_TOP)
+    ct.pp.pca(d, n_comps=50)
+    reset_launch_counts()
+    ct.pp.neighbors(d, n_neighbors=15)
+    sync(dev)
+    counts = launch_counts()
+    res = ct.tl.association(d, y, "id", Nnull=1000, seed=0,
+                            return_full=True)
+    rec["umap"] = umap_record(ct, d, dev, cells=500, timed=False)
+    if with_plots:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        t0 = time.perf_counter()
+        fig, axes = plt.subplots(1, 2, figsize=(12, 5))
+        ct.pl.umap_ncorr(d, ax=axes[0])
+        ct.pl.violinplot(d, "batch", ax=axes[1])
+        png = os.path.join(workdir, "atlas_umap.png")
+        fig.savefig(png, dpi=80)
+        plt.close(fig)
+        rec["plots_s"] = time.perf_counter() - t0
+        rec["png_kb"] = os.path.getsize(png) / 1e3
+    if with_files:
+        path = os.path.join(workdir, "atlas_result.h5ad")
+        d.write(path)
+        back = ct.read_h5ad(path)
+        rec["round_trip"] = dict(
+            X=csr_equal(d.X, back.X), obs=frames_equal(d.obs, back.obs),
+            obsm={k: bool(np.array_equal(np.asarray(d.obsm[k]),
+                                         back.obsm[k]))
+                  for k in ("X_pca", "X_umap")},
+            obsp={k: csr_equal(d.obsp[k].tocsr(), back.obsp[k])
+                  for k in ("connectivities", "distances")})
+    sync(dev)
+    rec["path_s"] = time.perf_counter() - t_path
+    rec["phases"] = [(p["phase"], round(p["seconds"], 4))
+                     for p in prof.phases]
+    rec.update(p=res.p, k=res.k, hvg_same_as_cpu=bool(np.array_equal(
+        keep, keep_cpu)), signal_genes_kept=int(keep[:SIGNAL_GENES].sum()),
+        knn_method_resolved=d.uns["neighbors"]["params"][
+            "knn_method_resolved"], launches=counts)
+    if torch.device(dev).type == "cuda":
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    failed = []
+    if not rec["hvg_same_as_cpu"]:
+        failed.append("HVG set differs from the CPU's")
+    if rec["signal_genes_kept"] != SIGNAL_GENES:
+        failed.append("signal genes not all among the HVGs")
+    if d.X.shape != (d.n_obs, HVG_TOP):
+        failed.append("X not subset to the HVGs")
+    if not res.p < 0.05:
+        failed.append("p >= 0.05")
+    if torch.device(dev).type == "cuda" and counts.get("knn_exact", 0) != 1:
+        failed.append("knn_exact not launched exactly once")
+    if with_files and not (rec["read_X_equal"] and all(
+            v if isinstance(v, bool) else all(v.values())
+            for v in rec["round_trip"].values())):
+        failed.append("file round trip")
+    if failed:
+        raise AssertionError(f"atlas entry path: {failed}: {rec}")
+    return counts, rec
+
+
 def compare_with_tree(tree, inputs, exact_res):
     """``--against DIR``: the package of the checkout at ``tree`` runs
     ``knn_exact`` on ``inputs`` and the 100,000-cell path in a second
@@ -1523,6 +1847,24 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     log("block and hybrid at 100k:", json.dumps(block_formats(ct)))
+    torch.cuda.empty_cache()
+
+    # h5py and matplotlib are optional: without them phase 10 starts from
+    # and stops at the in-memory CellData and draws no picture (stated on
+    # the line below); where they are present, those steps run and must
+    # pass
+    with_files = importlib.util.find_spec("h5py") is not None
+    with_plots = importlib.util.find_spec("matplotlib") is not None
+    log(f"atlas entry path: h5py {'present' if with_files else 'absent'}, "
+        f"matplotlib {'present' if with_plots else 'absent'}: the h5ad "
+        f"steps {'run' if with_files else 'are left out'}, the plots "
+        f"{'run' if with_plots else 'are left out'}")
+    with tempfile.TemporaryDirectory() as workdir:
+        entry_counts, entry_rec = atlas_entry_path(
+            ct, with_files=with_files, with_plots=with_plots,
+            workdir=workdir)
+    log("100k atlas entry path:", json.dumps(entry_rec))
+    log("100k-atlas-entry-path launches:", json.dumps(entry_counts))
 
     main_case = cases[0]
     kernels = [{

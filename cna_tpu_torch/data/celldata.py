@@ -9,7 +9,7 @@ scanpy/anndata dependency while remaining duck-type compatible with real
 AnnData objects (every cna_tpu_torch API accepts either).
 
 A copy of the TPU package's ``data/celldata.py`` (numpy and pandas
-only), without the h5ad writer, which waits for a later slice.
+only).
 """
 
 from __future__ import annotations
@@ -111,6 +111,13 @@ class CellData:
         return CellData(
             X=self.X[mask] if self.X is not None else None,
             obs=obs.copy(), var=self.var, obsm=obsm, obsp=obsp, uns=uns)
+
+    def write(self, path) -> None:
+        """Write to an .h5ad file (``data.io_h5ad.write_h5ad``; needs
+        h5py)."""
+        from .io_h5ad import write_h5ad
+
+        write_h5ad(self, path)
 
     def __repr__(self):
         parts = [f"CellData: {self.n_obs} cells x {self.n_vars} genes"]

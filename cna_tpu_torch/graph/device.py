@@ -298,47 +298,51 @@ class DeviceConnectivities(_LazyCsr):
                 repr((self.shape, self.ell.max_degree,
                       self.ell.n_overflow)).encode()]
 
+    def edges(self):
+        """(rows, cols, weights) of every stored edge, on the graph's
+        device, in the original cell order (rows and cols int64, in no
+        particular order; an edge stored twice appears twice)."""
+        ell = self.ell
+        dev = ell.device
+        parts = []  # (rows_compact, cols_compact, vals)
+
+        def add(rows, idx, w):
+            keep = w > 0
+            parts.append((rows.expand(idx.shape)[keep], idx[keep].long(),
+                          w[keep]))
+
+        rows_all = torch.arange(self._n, device=dev)[:, None]
+        if isinstance(ell, SortedExtGraph):
+            add(rows_all, ell.direct_indices, ell.direct_weights)
+            # a graph carried over from the TPU package may hold padded,
+            # overlapping bucket slices: concat positions may exceed n; -1
+            # marks positions whose row is canonical elsewhere, and their
+            # copies drop
+            total = sum(int(b.shape[0]) for b in ell.ext_indices)
+            pi = torch.full((total,), -1, dtype=torch.int64, device=dev)
+            pi[ell.inv_pi.long()] = torch.arange(self._n, device=dev)
+            start = 0
+            for bi, bw in zip(ell.ext_indices, ell.ext_weights):
+                if bi.numel():
+                    rr = pi[start:start + bi.shape[0], None]
+                    add(rr, bi, torch.where(rr >= 0, bw, 0))
+                start += bi.shape[0]
+        else:
+            add(rows_all, ell.indices, ell.weights)
+        if ell.n_overflow:
+            add(ell.overflow_rows.long(), ell.overflow_cols,
+                ell.overflow_weights)
+        r, c, v = (torch.cat([p[i] for p in parts]) for i in range(3))
+        if self.ordering is not None:  # perm[compact] = original
+            perm = torch.as_tensor(self.ordering.perm, device=dev).long()
+            r, c = perm[r], perm[c]
+        return r, c, v
+
     def tocsr(self):
         if self._csr is None:
             import scipy.sparse as sp
 
-            ell = self.ell
-            perm = (self.ordering.perm if self.ordering is not None
-                    else np.arange(self._n))  # perm[compact] = original
-            rows_all = np.arange(self._n)[:, None]
-            parts = []  # (rows_compact, cols_compact, vals)
-
-            def add(rows, idx, w):
-                keep = w > 0
-                parts.append((np.broadcast_to(rows, idx.shape)[keep],
-                              idx[keep], w[keep]))
-
-            if isinstance(ell, SortedExtGraph):
-                add(rows_all, fetch(ell.direct_indices),
-                    fetch(ell.direct_weights))
-                # a graph carried over from the TPU package may hold
-                # padded, overlapping bucket slices: concat positions may
-                # exceed n; -1 marks positions whose row is canonical
-                # elsewhere, and their copies drop
-                inv_pi = fetch(ell.inv_pi)
-                total = sum(int(b.shape[0]) for b in ell.ext_indices)
-                pi = np.full(total, -1, dtype=np.int64)
-                pi[inv_pi] = np.arange(self._n)
-                start = 0
-                for bi, bw in zip(ell.ext_indices, ell.ext_weights):
-                    bi, bw = fetch(bi), fetch(bw)
-                    if bi.size:
-                        rr = pi[start:start + bi.shape[0], None]
-                        add(rr, bi, np.where(rr >= 0, bw, 0))
-                    start += bi.shape[0]
-            else:
-                add(rows_all, fetch(ell.indices), fetch(ell.weights))
-            if ell.n_overflow:
-                ow = fetch(ell.overflow_weights)
-                add(fetch(ell.overflow_rows), fetch(ell.overflow_cols), ow)
-            r = perm[np.concatenate([p[0] for p in parts])]
-            c = perm[np.concatenate([p[1] for p in parts])]
-            v = np.concatenate([p[2] for p in parts])
+            r, c, v = (fetch(t) for t in self.edges())
             csr = sp.csr_matrix((v, (r, c)), shape=self.shape)
             csr.sum_duplicates()
             self._csr = csr

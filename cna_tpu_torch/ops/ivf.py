@@ -44,6 +44,7 @@ import ctypes
 
 import torch
 
+from ..utils.checks import kernel_outputs
 from . import _build
 from ._dist_tile import D_PADS, filter_bound, kernel_d_pad  # noqa: F401
 
@@ -129,6 +130,7 @@ def score_blocks(x4, sel_ids, probe_ids, blk_counts, blk_csum, k, g=128,
     if err != 0:
         raise RuntimeError(f"ivf_score launch failed with CUDA error {err}")
     _build.count_launch(KERNEL)
+    kernel_outputs(KERNEL, negd, idx)
     return negd, idx
 
 

@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from ..utils.checks import kernel_outputs
 from . import _build
 from ._dist_tile import filter_bound, kernel_d_pad
 
@@ -102,6 +103,7 @@ def knn_exact(x: torch.Tensor, k: int, stats=None):
     if err != 0:
         raise RuntimeError(f"knn_exact launch failed with CUDA error {err}")
     _build.count_launch(KERNEL)
+    kernel_outputs(KERNEL, negd, idx)
     return negd, idx
 
 

@@ -47,6 +47,7 @@ import torch
 
 from .. import config
 from ..graph.ell import _np_float, _pack_ell_host, _round_up
+from ..utils.checks import kernel_outputs
 from ..utils.transfer import fetch, to_device
 from . import _build
 from .spmm import _auto_block, coo_spmm_add, ell_spmm
@@ -363,6 +364,7 @@ def _banded_spmm_cuda(compact, slab_starts, x, row_tile):
     if err != 0:
         raise RuntimeError(f"banded_spmm launch failed with CUDA error {err}")
     _build.count_launch(KERNEL)
+    kernel_outputs(KERNEL, y)
     return y
 
 

@@ -22,6 +22,15 @@ import time
 import torch
 
 
+# names of the phases open now, outermost first, whether or not the
+# profiler records them (``utils.checks.FloatChecks`` names them)
+_OPEN_PHASES: list[str] = []
+
+
+def open_phases() -> tuple:
+    return tuple(_OPEN_PHASES)
+
+
 def _sync() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -39,16 +48,20 @@ class PhaseProfiler:
     @contextlib.contextmanager
     def phase(self, name: str, **counters):
         """Time a pipeline phase; counters (e.g. cells=N) derive rates."""
-        if not self.enabled:
-            yield
-            return
-        ctx = (torch.profiler.record_function(name)
-               if self._tracing else contextlib.nullcontext())
-        t0 = time.perf_counter()
-        with ctx:
-            yield
-            _sync()
-        dt = time.perf_counter() - t0
+        _OPEN_PHASES.append(name)
+        try:
+            if not self.enabled:
+                yield
+                return
+            ctx = (torch.profiler.record_function(name)
+                   if self._tracing else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with ctx:
+                yield
+                _sync()
+            dt = time.perf_counter() - t0
+        finally:
+            _OPEN_PHASES.pop()
         rec = {"phase": name, "seconds": dt}
         for key, val in counters.items():
             rec[key] = val

@@ -1,4 +1,6 @@
-"""The hand-written CUDA kernels against their plain versions, on the card.
+"""The hand-written CUDA kernels against their plain versions, on the card,
+and the device paths without a kernel whose results must not depend on the
+device (HVG moments, the UMAP engine).
 
 These tests need an NVIDIA card and skip without one.  This file imports
 neither JAX nor cna_tpu, so it runs where the port runs; on the card's
@@ -479,3 +481,108 @@ def test_nam_under_banded_on_the_card_goes_through_the_kernel():
     finally:
         ct.config.set_device("cpu")
         ct.config.enable_x64(True)
+
+
+@pytest.mark.gpu
+def test_select_hvg_on_the_card_keeps_the_cpus_genes():
+    need_cuda()
+    rng = np.random.RandomState(4)
+    n, g = 3000, 4000
+    x = rng.poisson(rng.lognormal(-2.0, 1.5, g), (n, g)).astype(np.float32)
+    x[:, :30] *= rng.gamma(0.5, 2.0, (n, 1)).astype(np.float32)
+    try:
+        keeps = {}
+        for dev in ("cuda", "cpu"):
+            ct.config.set_device(dev)
+            d = ct.CellData(X=sp.csr_matrix(x))
+            keeps[dev] = ct.pp.select_hvg(d, n_top=300)
+            assert sp.issparse(d.X) and d.X.shape == (n, 300)
+        np.testing.assert_array_equal(keeps["cuda"], keeps["cpu"])
+        assert keeps["cuda"][:30].all()
+    finally:
+        ct.config.set_device("cpu")
+        ct.config.enable_x64(True)
+
+
+@pytest.mark.gpu
+def test_umap_engine_on_the_card():
+    """The edges and groups sorted on the card equal the CPU's; three
+    epochs on the card under the CPU's window draws stay as close to the
+    same epochs in float64 as the CPU's float32 run does (within 4x, both
+    being float32 rounding of the same sums); two card runs of one seed
+    give the same bits."""
+    import importlib
+
+    um = importlib.import_module("cna_tpu_torch.pp.umap")
+    need_cuda()
+    try:
+        ct.config.set_device("cpu")
+        ct.config.enable_x64(True)
+        d, _ = ct.data.synthetic_dataset(n_samples=20, cells_per_sample=100,
+                                         n_genes=30, seed=3,
+                                         dtype=np.float64)
+        ct.pp.pca(d, n_comps=15)
+        ct.pp.neighbors(d, n_neighbors=15)
+        conn = d.obsp["connectivities"]
+        n = d.n_obs
+        groups = {}
+        for dev in ("cpu", "cuda"):
+            ct.config.set_device(dev)
+            h, t, e = um._umap_edges(conn, 200)
+            groups[dev] = um._period_structure(h, t, e, n)
+        for gc, gg in zip(groups["cpu"], groups["cuda"]):
+            assert gc["period"] == gg["period"]
+            for key in ("heads", "tails", "ord", "bounds"):
+                assert torch.equal(gc[key], gg[key].cpu()), key
+        a, b = um._fit_ab()
+        pos0, _ = um.initial_layout(d, conn, "spectral", seed=0)
+        nw = n // 5
+        rng = np.random.RandomState(0)
+        table = {(i, gi): rng.randint(0, nw, g["heads"].shape[0])
+                 for i in range(3) for gi, g in enumerate(groups["cpu"])}
+
+        def draws(dev):
+            return lambda i, gi, e_g, nw_: torch.as_tensor(
+                table[i, gi], device=dev)
+
+        run = {}
+        for key, dev, dtype in (("cpu64", "cpu", torch.float64),
+                                ("cpu32", "cpu", torch.float32),
+                                ("cuda32", "cuda", torch.float32)):
+            run[key] = um._optimize_layout(
+                torch.as_tensor(pos0, device=dev, dtype=dtype), groups[dev],
+                a, b, 3, _draws=draws(dev)).cpu().double()
+        cpu_err = float((run["cpu32"] - run["cpu64"]).abs().max())
+        card_err = float((run["cuda32"] - run["cpu64"]).abs().max())
+        assert card_err <= 4 * max(cpu_err, 1e-6), (card_err, cpu_err)
+        pos0_dev = torch.as_tensor(pos0, device="cuda")
+        first = um._optimize_layout(pos0_dev, groups["cuda"], a, b, 20, seed=5)
+        again = um._optimize_layout(pos0_dev, groups["cuda"], a, b, 20, seed=5)
+        assert torch.equal(first, again)
+    finally:
+        ct.config.set_device("cpu")
+        ct.config.enable_x64(True)
+
+
+@pytest.mark.gpu
+def test_float_checks_see_the_kernels_output(monkeypatch):
+    """The CUDA kernels bypass the dispatcher; their wrappers hand the
+    outputs to ``utils.checks.kernel_outputs``, which checks them while the
+    NaN checks are on."""
+    from cna_tpu_torch.utils import checks
+
+    need_cuda()
+    seen = []
+
+    def spy(kernel, *outs):
+        seen.append((kernel, [o.device.type for o in outs]))
+        checks.kernel_outputs(kernel, *outs)
+
+    monkeypatch.setattr(knn_ops, "kernel_outputs", spy)
+    x = torch.randn(500, 8, device="cuda")
+    with checks.FloatChecks():
+        knn_ops.knn_exact(x, 5)
+        bad = torch.full((3,), torch.nan, device="cuda")
+        with pytest.raises(FloatingPointError, match="'knn_exact'"):
+            checks.kernel_outputs(knn_ops.KERNEL, bad)
+    assert seen == [(knn_ops.KERNEL, ["cuda", "cuda"])]

@@ -25,15 +25,20 @@ PKG = ROOT / "cna_tpu_torch"
 
 
 def test_import_pulls_in_neither_jax_nor_cna_tpu():
+    """Nor, at import, the packages that only some paths need: h5py (the
+    h5ad files), matplotlib (``pl``) and scipy.optimize (``pp.umap``)."""
     code = ("import sys, cna_tpu_torch, cna_tpu_torch.ops.knn, "
             "cna_tpu_torch.ops.ivf, cna_tpu_torch.pp.ivf_fine, "
             "cna_tpu_torch.graph.device, cna_tpu_torch.graph.blocks, "
             "cna_tpu_torch.ops.spmm_banded, cna_tpu_torch.tools._stats, "
             "cna_tpu_torch.utils.checkpoint, "
-            "cna_tpu_torch.utils.multisample; "
-            "bad = [m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m == 'cna_tpu' "
-            "or m.startswith('cna_tpu.')]; "
+            "cna_tpu_torch.utils.multisample, cna_tpu_torch.utils.checks, "
+            "cna_tpu_torch.data.io_h5ad, cna_tpu_torch.pp.hvg, "
+            "cna_tpu_torch.pp.umap, cna_tpu_torch.plotting._umap, "
+            "cna_tpu_torch.plotting._strat; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'cna_tpu', 'h5py', 'matplotlib') "
+            "or m.startswith('scipy.optimize')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -53,14 +58,26 @@ def test_sources_name_neither_jax_nor_cna_tpu():
 
 def test_namespace_mirrors_the_tpu_package():
     for name in ("association", "nam", "svd_nam", "diffuse",
-                 "diffuse_stepwise", "CellData", "tl", "ut", "config"):
+                 "diffuse_stepwise", "CellData", "read_h5ad", "tl", "pl",
+                 "ut", "config"):
         assert hasattr(ct, name), name
     for name in ("association", "nam", "svd_nam", "diffuse",
                  "diffuse_stepwise", "set_graph_format"):
         assert callable(getattr(ct.tl, name)), name
-    for name in ("pca", "pca_array", "knn_search", "ivf_knn", "neighbors",
-                 "fuzzy_connectivities"):
+    for name in ("select_hvg", "pca", "pca_array", "knn_search", "ivf_knn",
+                 "neighbors", "fuzzy_connectivities", "umap"):
         assert callable(getattr(ct.pp, name)), name
+    for name in ("umap_ncorr", "umap_overlay", "violinplot"):
+        assert callable(getattr(ct.pl, name)), name
+    for name in ("read_h5ad", "write_h5ad", "synthetic_dataset"):
+        assert callable(getattr(ct.data, name)), name
+    assert callable(ct.CellData.write) and ct.read_h5ad is ct.data.read_h5ad
+    for name in ("precision", "current_precision", "spmm_dtype",
+                 "enable_debug_nans", "enable_compilation_cache",
+                 "warmup_transfers_async"):
+        assert callable(getattr(config, name)), name
+    assert config.Precision(x64=True).float == torch.float64
+    assert callable(ct.ut.checks.checkify_float_checks)
     for name in ("graph_from_numpy", "sorted_ext_graph_from_numpy",
                  "fine_index_from_numpy", "banded_graph_from_numpy",
                  "block_graph_from_numpy", "hybrid_graph_from_numpy",
