@@ -56,7 +56,25 @@ Phases, each of which must pass (any failure exits non-zero):
     in-memory CellData, without matplotlib it draws no picture, and the
     line before the path says which steps ran.  The file and plot layers
     are held to the TPU package by the CPU tests
-    (``tests/test_torch_io.py``, ``tests/test_torch_umap.py``).
+    (``tests/test_torch_io.py``, ``tests/test_torch_umap.py``);
+11. mesh, several slots on this one card (``parallel``): (a) phase 8's
+    1,000,000-cell manifold graph, default format, through
+    ``tl.association(mesh=)`` under ``make_mesh(["cuda:0"] * 4)`` (4
+    cells x 1 perm) and ``perms=2`` (2 x 2, which takes the mesh FDR):
+    path 'halo', p and k equal to phase 8's single-device result,
+    ``ncorrs`` and the NAM within phase 8's format gates; the halo plan's
+    seconds (partition, plan), ghost fraction, rounds and bytes per step,
+    and ms per halo step (CUDA events) beside the default format's step;
+    (b) phase 5's 1,000,000 archetype points through
+    ``pp.ivf_knn(devices=["cuda:0", "cuda:0"])``: ids and distances equal
+    to the one-device search bit for bit, ``ivf_score`` launched once per
+    device; (c) a process group of one over NCCL (``launch.
+    initialize_distributed`` on a ``file://`` store), ``launch.global_mesh``
+    of two slots and phase 4's association through it, with
+    ``assert_agreement`` on p and ``ncorrs`` through NCCL's all-gather.
+    One card shows the partition, the plan, the exchange rounds and the
+    sharded nulls running; it cannot show an interconnect (the exchange
+    is device-local copies) or a two-card NCCL exchange.
 
 Phase 5 also lays out its 1,000,000-cell IVF graph with ``pp.umap``
 (init 'auto' -> 'pca', 200 epochs): the edge, init and SGD seconds, ms per
@@ -64,9 +82,9 @@ epoch (CUDA events, a second run of the epochs held to the first bit for
 bit), the least bytes an epoch moves and their time at the card's memory
 rate, and the layout quality bar on 2,000 cells.
 
-Each path of phases 4, 5, 8 and 10 runs with the kernel launch counts set
-to 0 just before it (phase 10: before ``pp.neighbors``) and read just
-after.
+Each path of phases 4, 5, 8, 10 and 11 (b) runs with the kernel launch
+counts set to 0 just before it (phase 10: before ``pp.neighbors``) and
+read just after.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the ``{"ok": true, "device": ...}`` line.  Without a CUDA
@@ -725,7 +743,7 @@ def check_ivf_main_shape(scores_dev, u, k):
 
 def main_path(ct):
     """The 100,000-cell path at full size; returns (launch counts,
-    record, the association result)."""
+    record, the association result, the data, the phenotype)."""
     d, y = dataset(ct, cells_per_sample=2000)
     counts, rec, res = drive_path(ct, d, y, method="auto")
     if rec["knn_method_resolved"] != "pallas":
@@ -738,7 +756,7 @@ def main_path(ct):
     conn = d.obsp["connectivities"].tocsr()
     if conn.shape != (d.n_obs, d.n_obs) or abs(conn - conn.T).max() != 0:
         raise AssertionError("connectivities are not a symmetric N x N CSR")
-    return counts, rec, res
+    return counts, rec, res, d, y
 
 
 def dataset(ct, cells_per_sample):
@@ -1239,7 +1257,9 @@ def banded_path(ct, dev="cuda", cells_per_sample=20_000):
     """The banded path at full width: 1,000,000 cells on trajectories, the
     association under the default format and under 'banded' (twice), the
     two held together; then the kernel alone at this graph's shape.
-    Returns (launch counts of the path, record, kernel record)."""
+    Returns (launch counts of the path, record, kernel record, and for the
+    mesh phase the data, the phenotype and the default format's
+    result)."""
     import torch
 
     from cna_tpu_torch.ops import (launch_counts, reset_launch_counts,
@@ -1362,7 +1382,7 @@ def banded_path(ct, dev="cuda", cells_per_sample=20_000):
     krec["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x), 5)
     krec["in_band_edges"] = int(csr.values().shape[0])
     krec.update(banded_bound(graph, n, s))
-    return counts, rec, krec
+    return counts, rec, krec, (d, y, res_def)
 
 
 def block_formats(ct, dev="cuda", cells_per_sample=2000):
@@ -1407,6 +1427,200 @@ def block_formats(ct, dev="cuda", cells_per_sample=2000):
         ct.tl.set_graph_format(d, "ell")
         torch.cuda.empty_cache()
     return out
+
+
+def halo_phases(prof, first):
+    """Seconds of the halo planning phases recorded since phase ``first``."""
+    out = {}
+    for p in prof.phases[first:]:
+        if p["phase"].startswith("halo_"):
+            out[p["phase"]] = out.get(p["phase"], 0.0) + p["seconds"]
+    return out
+
+
+def tensor_rel_err(ref, other):
+    """max |other - ref| / max |ref| of two tensors (on the card)."""
+    if ref.shape != other.shape or not bool(other.isfinite().all()):
+        raise AssertionError("NAMs differ in shape or are not finite")
+    return float((other - ref).abs().max() / ref.abs().max())
+
+
+def halo_step_ms(d, plan, mesh, s_cols, reps=5, dev="cuda"):
+    """Milliseconds per halo diffusion step of ``d``'s plan over ``mesh``
+    on a random (rows, s_cols) state (CUDA events)."""
+    import torch
+
+    from cna_tpu_torch.parallel import halo
+    from cna_tpu_torch.parallel.mesh import cell_rows, place
+
+    placed = halo.place_plan(plan, mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    state = place(torch.rand((plan.n_shards * plan.shard_rows, s_cols),
+                             generator=gen, device=dev,
+                             dtype=plan.dtype), cell_rows(mesh))
+    return cuda_ms(lambda: halo.halo_diffusion_step(state, placed, mesh, 1),
+                   reps)
+
+
+def mesh_association(ct, d, y, res_single, step_ms_default, dev="cuda"):
+    """Phase mesh (a): the 1M-cell manifold graph of phase 8 (default
+    format) under 4 x 1 and 2 x 2 meshes of slots on this one card: the
+    association through the halo exchange, held to the single-device
+    result of phase 8 (p, k equal; ``ncorrs`` and the NAM within phase 8's
+    format gates), and the plan's exchange figures."""
+    import torch
+
+    from cna_tpu_torch.parallel import make_mesh
+    from cna_tpu_torch.tools._nam import (_DIFFUSION_PATH_KEY, _FORMAT_KEY,
+                                          get_halo_plan, nam_arrays)
+    from cna_tpu_torch.utils import profiling
+
+    ct.config.set_device(dev)
+    ct.config.enable_x64(False)
+    slot = "cuda:0" if dev == "cuda" else dev
+    d.uns.pop(_FORMAT_KEY, None)  # back to the default format
+    nam_single = nam_arrays(d, "id", nsteps=FORMAT_NSTEPS)[0].nam
+    prof = profiling.enable_profiling()
+    out = {}
+    for perms in (1, 2):
+        mesh = make_mesh([slot] * 4, perms=perms)
+        cells = 4 // perms
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+        n_before = len(prof.phases)
+        t0 = time.perf_counter()
+        res = ct.tl.association(d, y, "id", Nnull=1000, seed=0, mesh=mesh,
+                                return_full=True)
+        sync(dev)
+        first_s = time.perf_counter() - t0
+        path = d.uns[_DIFFUSION_PATH_KEY]
+        t0 = time.perf_counter()
+        res2 = ct.tl.association(d, y, "id", Nnull=1000, seed=0, mesh=mesh,
+                                 return_full=True)
+        sync(dev)
+        second_s = time.perf_counter() - t0
+        arrays, _ = nam_arrays(d, "id", nsteps=FORMAT_NSTEPS, mesh=mesh)
+        nam_err = tensor_rel_err(nam_single, arrays.nam)
+        del arrays
+        plan, _ = get_halo_plan(d, cells)
+        r = float(np.corrcoef(np.asarray(res_single.ncorrs),
+                              np.asarray(res.ncorrs))[0, 1])
+        rec = dict(
+            mesh=mesh.shape, path=path, plan_s=halo_phases(prof, n_before),
+            association_first_s=first_s, association_second_s=second_s,
+            p=(res_single.p, res.p, res2.p), k=(res_single.k, res.k, res2.k),
+            ncorrs_corr=r, nam_rel_err=nam_err,
+            ghost_fraction=plan.ghost_fraction(), rounds=len(plan.rounds),
+            exchange_bytes=plan.exchange_stats(s_cols=50, itemsize=4),
+            shard_rows=plan.shard_rows, padded_area=plan.padded_area(),
+            step_ms_halo=halo_step_ms(d, plan, mesh, 50, dev=dev),
+            step_ms_default=step_ms_default,
+            phases=[(p["phase"], round(p["seconds"], 4))
+                    for p in prof.phases[n_before:]],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[f"{cells}x{perms}"] = rec
+        failed = []
+        if path != "halo":
+            failed.append("path")
+        if not (res.p == res2.p == res_single.p
+                and res.k == res2.k == res_single.k):
+            failed.append("p or k")
+        if not r > FORMAT_NCORR_MIN:
+            failed.append("ncorrs")
+        if not nam_err <= FORMAT_NAM_RTOL:
+            failed.append("NAM")
+        if failed:
+            raise AssertionError(f"the {cells} x {perms} mesh disagrees with "
+                                 f"one device on {failed}: {rec}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def ivf_devices(ct, scores_dev, k=15):
+    """Phase mesh (b): the 1M archetype points of phase 5 through
+    ``ivf_knn(devices=["cuda:0", "cuda:0"])``: ids and distances equal to
+    the one-device search bit for bit, ``ivf_score`` launched once per
+    device where the one-device search launches once.  Returns (launch
+    counts of the two-device search, record)."""
+    import torch
+
+    from cna_tpu_torch.ops import launch_counts, reset_launch_counts
+    from cna_tpu_torch.pp.ivf import ivf_knn_device
+
+    dev = scores_dev.device
+    slot = str(torch.device(dev.type, dev.index or 0)) \
+        if dev.type == "cuda" else "cpu"
+    runs = {}
+    for devices in (None, [slot, slot]):
+        sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = ivf_knn_device(scores_dev, k, seed=0, devices=devices)
+        sync(dev)
+        runs[devices is not None] = (res, time.perf_counter() - t0,
+                                     launch_counts())
+    (one, one_s, one_counts), (two, two_s, two_counts) = runs[False], \
+        runs[True]
+    rec = dict(cells=scores_dev.shape[0], u=(one.u, two.u),
+               recall=(one.recall, two.recall), seconds=(one_s, two_s),
+               launches=(one_counts, two_counts),
+               ids_equal=torch.equal(one.indices, two.indices),
+               dists_equal=torch.equal(one.dists, two.dists))
+    n_one = one_counts.get("ivf_score", 0)
+    launched = (dev.type != "cuda"  # the plain version on a CPU rehearsal
+                or (n_one >= 1
+                    and two_counts.get("ivf_score", 0) == 2 * n_one))
+    if not (rec["ids_equal"] and rec["dists_equal"] and launched):
+        raise AssertionError(f"ivf_knn(devices=) differs from one device: "
+                             f"{rec}")
+    return two_counts, rec
+
+
+def nccl_association(ct, d, y, res_single, workdir, dev="cuda"):
+    """Phase mesh (c): one process joins a process group of one over NCCL
+    (a ``file://`` store, no network), builds ``launch.global_mesh`` of
+    two slots on this card and runs the association of phase 4's 100,000
+    cells through it; ``assert_agreement`` on p and ``ncorrs`` goes
+    through NCCL's all-gather."""
+    import torch
+
+    from cna_tpu_torch.parallel import launch
+    from cna_tpu_torch.tools._nam import _DIFFUSION_PATH_KEY
+
+    # NCCL's bootstrap needs an interface even for a world of one; the
+    # machine has no network, so it takes the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    ct.config.set_device(dev)
+    ct.config.enable_x64(False)
+    slot = "cuda:0" if dev == "cuda" else dev
+    launch.initialize_distributed(f"file://{workdir}/pg", num_processes=1,
+                                  process_id=0)
+    try:
+        backend = torch.distributed.get_backend()
+        mesh = launch.global_mesh(perms=1, local_devices=[slot] * 2)
+        t0 = time.perf_counter()
+        res = ct.tl.association(d, y, "id", Nnull=1000, seed=0, mesh=mesh,
+                                return_full=True)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+        launch.assert_agreement(res.p, "global_p")
+        launch.assert_agreement(res.ncorrs, "ncorrs")
+        rec = dict(backend=backend, info=launch.process_info(),
+                   mesh=mesh.shape, path=d.uns[_DIFFUSION_PATH_KEY],
+                   seconds=seconds, p=(res_single.p, res.p),
+                   k=(res_single.k, res.k),
+                   ncorrs_corr=float(np.corrcoef(
+                       np.asarray(res_single.ncorrs),
+                       np.asarray(res.ncorrs))[0, 1]))
+    finally:
+        torch.distributed.destroy_process_group()
+    want = "nccl" if dev == "cuda" else "gloo"
+    if not (backend == want and rec["path"] == "halo"
+            and res.p == res_single.p and res.k == res_single.k
+            and rec["ncorrs_corr"] > FORMAT_NCORR_MIN):
+        raise AssertionError(f"the NCCL mesh association: {rec}")
+    return rec
 
 
 def sync(dev):
@@ -1817,7 +2031,7 @@ def main(argv) -> int:
     for rec in banded_cases:
         log("banded_spmm vs plain:", json.dumps(rec))
 
-    counts, slice_rec, exact_res = main_path(ct)
+    counts, slice_rec, exact_res, d100k, y100k = main_path(ct)
     log("100k path:", json.dumps(slice_rec))
     log("100k-path launches:", json.dumps(counts))
     if against is not None:
@@ -1829,7 +2043,6 @@ def main(argv) -> int:
     log("1M path:", json.dumps(atlas_rec))
     log("1M-path launches:", json.dumps(atlas_counts))
     ivf_main = check_ivf_main_shape(scores_dev, u, 15)
-    del scores_dev
     torch.cuda.empty_cache()
     log("ivf_score vs plain:", json.dumps(ivf_main))
     ivf_cases.append(ivf_main)
@@ -1839,7 +2052,7 @@ def main(argv) -> int:
     cmp_rec = card_vs_cpu(ct)
     log("card vs cpu:", json.dumps(cmp_rec))
 
-    banded_counts, banded_rec, banded_main = banded_path(ct)
+    banded_counts, banded_rec, banded_main, manifold = banded_path(ct)
     log("banded 1M path:", json.dumps(banded_rec))
     log("banded-1M-path launches:", json.dumps(banded_counts))
     log("banded_spmm vs plain:", json.dumps(banded_main))
@@ -1865,6 +2078,27 @@ def main(argv) -> int:
             workdir=workdir)
     log("100k atlas entry path:", json.dumps(entry_rec))
     log("100k-atlas-entry-path launches:", json.dumps(entry_counts))
+
+    # the mesh phase: (a) phase 8's 1M manifold graph under 4 x 1 and
+    # 2 x 2 meshes of this card's slots, (b) phase 5's points through
+    # ivf_knn(devices=), (c) a process group of one over NCCL
+    t0 = time.perf_counter()
+    mesh_rec = mesh_association(ct, *manifold,
+                                banded_rec["step_ms_default"])
+    log("mesh (a) 1M manifold association on one-card meshes:",
+        json.dumps(mesh_rec))
+    del manifold
+    torch.cuda.empty_cache()
+    ivf_dev_counts, ivf_dev_rec = ivf_devices(ct, scores_dev)
+    log("mesh (b) ivf_knn(devices=['cuda:0', 'cuda:0']) at 1M:",
+        json.dumps(ivf_dev_rec))
+    log("mesh-(b) launches:", json.dumps(ivf_dev_counts))
+    del scores_dev
+    with tempfile.TemporaryDirectory() as workdir:
+        nccl_rec = nccl_association(ct, d100k, y100k, exact_res, workdir)
+    log("mesh (c) NCCL process group of one, 100k association:",
+        json.dumps(nccl_rec))
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
 
     main_case = cases[0]
     kernels = [{
@@ -1914,6 +2148,8 @@ def main(argv) -> int:
                    "k")},
         "slot_share": f"1/{IVF_SHARE}",
         "all_slots": ivf_main["all_slots"],
+        # the same search dealt over two slots of the card (phase 11 b)
+        "devices_launches": ivf_dev_counts.get(ivf.KERNEL, 0),
         # the bound is the tensor cores' (dense TF32); the same operations
         # at the float32 peak outside them, which was this row's bound
         # while the kernel ran there, is kept beside it; and what the

@@ -9,16 +9,20 @@ It keeps that package's public names and contracts:
   cna_tpu_torch.pp (HVG / PCA / kNN / fuzzy-connectivity graph / UMAP)
   cna_tpu_torch.CellData, cna_tpu_torch.read_h5ad, cna_tpu_torch.config,
   cna_tpu_torch.ut
+  cna_tpu_torch.parallel (make_mesh, CELLS, PERMS, halo, launch, sharded)
 
 Plain tensor code is PyTorch; each TPU kernel on the ported path is a
 CUDA kernel written by hand for Hopper (``csrc/``, built by ``nvcc`` at
 first use).  Entry points compute on ``cuda`` unless the caller asks for
 the CPU with ``config.set_device("cpu")``.  ``pl`` needs matplotlib and
-``read_h5ad`` / ``CellData.write`` need h5py, imported at first use.  Still
-to port (ROADMAP.md): ``parallel`` (several devices).
+``read_h5ad`` / ``CellData.write`` need h5py, imported at first use.
+``association(mesh=)``, ``nam(mesh=)`` and ``pp.ivf_knn(devices=)`` spread
+the work over several slots of a ``parallel.make_mesh`` mesh (several
+cards, several processes, or several slots on one device).
 """
 
 from . import config
+from . import parallel
 from . import pp
 from . import tools as tl
 from . import plotting as pl
@@ -40,4 +44,5 @@ __all__ = [
     "pl",
     "ut",
     "config",
+    "parallel",
 ]

@@ -139,6 +139,28 @@ def null_coef_tail_counts(namresid, ycond, n, t0, dt, n_bins, atol=1e-8,
     return tails
 
 
+def null_coef_tail_counts_mesh(namresid, ycond, n, t0, dt, n_bins, mesh,
+                               atol=1e-8, rtol=1e-5, block=32_768):
+    """``null_coef_tail_counts`` over a (cells, perms) mesh, so that no
+    slot materializes the (cells x Nnull) null-coefficient matrix either.
+
+    Each slot runs the fused matmul + histogram on its (S, C/D_cells) x
+    (S, m/D_perms) tile on its device; the (n_bins,) tails are summed over
+    the slots and the processes (``parallel.dist.psum``), the only
+    collective.  The blocks are ``np.array_split``'s, so cell and null
+    counts need not divide the mesh.  ``namresid`` / ``ycond`` are global
+    values that every process holds.
+    """
+    from ..parallel import dist, sharded
+
+    tails = sharded._tiles(
+        namresid, ycond, mesh,
+        lambda nr, yc: null_coef_tail_counts(nr, yc, n, t0, dt, n_bins,
+                                             atol=atol, rtol=rtol,
+                                             block=block))
+    return dist.psum(mesh, tails.values(), (n_bins,), torch.int64)
+
+
 def empirical_fdrs(z, znull, thresholds, atol=1e-8, rtol=1e-5):
     """FDR curve over magnitude thresholds from permutation nulls.
 

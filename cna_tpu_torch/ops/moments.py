@@ -114,15 +114,26 @@ def column_r2_counted(a, b, n_true, ddof=1):
     ``saa - n*ma*ma`` can leave a varying column with a tiny negative
     variance, which must not trip the sentinel.
     """
+    return column_r2_from_sums(column_sums(a, b), n_true, ddof)
+
+
+def column_sums(a, b):
+    """The raw column sums ``column_r2_counted`` needs, stacked (5, S):
+    sum a, sum b, sum a*a, sum b*b, sum a*b.  Row blocks of a sharded
+    state add up to the whole's."""
+    return torch.stack([a.sum(dim=0), b.sum(dim=0), (a * a).sum(dim=0),
+                        (b * b).sum(dim=0), (a * b).sum(dim=0)])
+
+
+def column_r2_from_sums(sums, n_true, ddof=1):
+    """``column_r2_counted`` from ``column_sums`` (5, S)."""
     n = n_true
-    sa, sb = a.sum(dim=0), b.sum(dim=0)
-    saa, sbb = (a * a).sum(dim=0), (b * b).sum(dim=0)
-    sab = (a * b).sum(dim=0)
+    sa, sb, saa, sbb, sab = sums
     ma, mb = sa / n, sb / n
     cov = sab / n - ma * mb
     var_a = (saa - n * ma * ma) / (n - ddof)
     var_b = (sbb - n * mb * mb) / (n - ddof)
-    eps = 16 * torch.finfo(a.dtype).eps
+    eps = 16 * torch.finfo(sums.dtype).eps
     safe = ((var_a > eps * torch.abs(saa / n))
             & (var_b > eps * torch.abs(sbb / n)))
     denom = var_a * var_b

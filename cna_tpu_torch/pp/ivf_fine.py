@@ -29,8 +29,7 @@ What differs from the TPU package, on purpose: the layout width
 (``FineIndex.d_pad``) is the kernel's (``ops.ivf.kernel_d_pad``), not a
 multiple of 128; the probe table uses an exact ``torch.topk`` (there is
 no ``approx_max_k``); a whole search is one kernel launch (see
-``_score_slots``); ``devices=`` (index replicas over several cards) is
-not ported (ROADMAP.md queue 1 item 8).
+``_score_slots``), or one per device with ``devices=``.
 """
 
 from __future__ import annotations
@@ -346,10 +345,28 @@ def _rank_blocks_centroid(cents, u):
 # ---------------------------------------------------------------------------
 
 
+def _index_replicas(index: FineIndex, devices):
+    """Per-device copies of the scoring operands (x4 / counts / csum),
+    built once and cached on the index.  Slot scoring has no cross-slot
+    communication, so a search over several devices is pure data
+    parallelism over slot batches, each device scoring against a full
+    replica."""
+    key = tuple(str(torch.device(d)) for d in devices)
+    cache = getattr(index, "_replicas", None)
+    if cache is not None and cache[0] == key:
+        return cache[1]
+    reps = {d: (index.x4.to(d), index.blk_counts_dev.to(d),
+                index.blk_csum_dev.to(d))
+            for d in {torch.device(d) for d in devices}}
+    index._replicas = (key, reps)
+    return reps
+
+
 def _score_slots(index: FineIndex, u: int, slot_ids: np.ndarray, k: int,
-                 probe_cache: dict):
+                 probe_cache: dict, devices=None):
     """Score a set of query slots at probe count ``u``; returns a list of
-    (negd, idx, slot count) batches of device tensors.
+    (negd, idx, slot count) batches of device tensors on the index's
+    device.
 
     The (F_pad, u) probe table is computed once per ``u`` on the device
     (``probe_cache`` spans pilot rounds and the full search) and sliced
@@ -357,11 +374,18 @@ def _score_slots(index: FineIndex, u: int, slot_ids: np.ndarray, k: int,
     query block, so the launch is sized to the card by the grid itself;
     batches only bound the output buffers (``_MAX_LAUNCH_ELEMS`` elements
     each of distances and ids), which makes a 1M-cell search one launch.
+    With ``devices`` the slots are cut into at least one batch per device
+    and the batches dealt round-robin, each launched on its device
+    against that device's index replica (``_index_replicas``); a query
+    block's result does not depend on its batch.
     """
     sel = np.asarray(slot_ids, np.int64)
     ns_real = len(sel)
     mq = index.q_blocks * index.g
     batch = max(1, _MAX_LAUNCH_ELEMS // (mq * k))
+    if devices:
+        batch = min(batch, max(1, -(-ns_real // len(devices))))
+        reps = _index_replicas(index, devices)
     if u not in probe_cache:
         table = _rank_blocks_centroid(index.cents, u)
         if index.q_blocks > 1:
@@ -370,16 +394,21 @@ def _score_slots(index: FineIndex, u: int, slot_ids: np.ndarray, k: int,
             table = table[::index.q_blocks][: index.n_slots]
         probe_cache[u] = table
     table = probe_cache[u]
-    dev = index.x4.device
+    home = index.x4.device
     out = []
-    for lo in range(0, ns_real, batch):
-        sel_dev = torch.as_tensor(sel[lo:lo + batch], device=dev)
+    for bi, lo in enumerate(range(0, ns_real, batch)):
+        sel_dev = torch.as_tensor(sel[lo:lo + batch], device=home)
         probe_b = table[sel_dev].contiguous()
+        x4, counts, csum = (index.x4, index.blk_counts_dev,
+                            index.blk_csum_dev)
+        if devices:
+            dev = torch.device(devices[bi % len(devices)])
+            x4, counts, csum = reps[dev]
+            sel_dev, probe_b = sel_dev.to(dev), probe_b.to(dev)
         negd, idx = score_blocks(
-            index.x4, sel_dev.to(torch.int32), probe_b,
-            index.blk_counts_dev, index.blk_csum_dev, k, g=index.g,
-            q_blocks=index.q_blocks)
-        out.append((negd, idx, len(sel_dev)))
+            x4, sel_dev.to(torch.int32), probe_b, counts, csum, k,
+            g=index.g, q_blocks=index.q_blocks)
+        out.append((negd.to(home), idx.to(home), len(sel_dev)))
     return out
 
 
@@ -461,12 +490,11 @@ def ivf_knn_fine(points, k, seed=0, min_recall=0.9, recall_sample=512,
     configured device); the search computes in float32.  ``u0`` seeds the
     probe count (fine blocks); the pilot calibrates it against a measured
     exact-truth sample whose held-out half also verifies the full search
-    (``min_recall=None`` disables both).
+    (``min_recall=None`` disables both).  ``devices``: score the slots
+    over these devices (names may repeat), each batch on its device
+    against a replica of the index; the results equal a one-device
+    search bit for bit.
     """
-    if devices is not None:
-        raise NotImplementedError(
-            "devices= (index replicas over several cards) is not ported to "
-            "cna_tpu_torch yet (ROADMAP.md queue 1 item 8)")
     prof = profiler or global_profiler()
     x_dev = (points if isinstance(points, torch.Tensor)
              else as_tensor(points)).to(torch.float32)
@@ -509,7 +537,8 @@ def ivf_knn_fine(points, k, seed=0, min_recall=0.9, recall_sample=512,
 
         while True:
             with prof.phase(f"ivf_pilot(u={u})"):
-                batches = _score_slots(index, u, ps_ids, k, probe_cache)
+                batches = _score_slots(index, u, ps_ids, k, probe_cache,
+                                       devices)
                 got_c = _pull_sample_rows(batches, ps_ids, index, cal_q, k)
             rec = _recall_against(index.order[got_c], truth_cal, k)
             history.append((u, rec))
@@ -544,7 +573,8 @@ def ivf_knn_fine(points, k, seed=0, min_recall=0.9, recall_sample=512,
     prev_rec = -1.0
     while True:
         with prof.phase(f"ivf_search(u={u})", cells=n):
-            batches = _score_slots(index, u, np.arange(s), k, probe_cache)
+            batches = _score_slots(index, u, np.arange(s), k, probe_cache,
+                                   devices)
             negd_flat = _cat([b[0] for b in batches]).reshape(-1, k)
             idx_flat = _cat([b[1] for b in batches]).reshape(-1, k)
             del batches

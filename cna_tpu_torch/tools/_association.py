@@ -13,7 +13,10 @@ batched tensor programs:
 * The empirical-FDR histogram trick (``_stats.py:34-83``) as a collapsed
   histogram on the device (``ops.fdr``).
 
-``mesh=`` is not ported yet.
+Under a mesh (``mesh=``) the diffusion is sharded over the cell slots
+(``tools._nam``), the null min-p columns over the perms slots and the
+null coefficients (or their fused tail counts) over (cells, perms) tiles
+(``parallel.sharded``).
 """
 
 from __future__ import annotations
@@ -27,10 +30,11 @@ import torch
 from ..core.results import Result
 from ..ops import fdr as fdr_ops
 from ..ops import ftest, moments, permutations
+from ..parallel import dist, sharded
 from ..utils import checks
 from ..utils.profiling import global_profiler
 from ..utils.transfer import as_tensor, fetch, fetch_many
-from ._nam import NamArrays, _not_ported, _resid_nam, nam, nam_arrays
+from ._nam import NamArrays, _resid_nam, nam, nam_arrays
 from ._out import select_output
 
 # local-test size (cells x local nulls) above which the FDR histogram is
@@ -78,11 +82,14 @@ def _assoc_null(u, m_proj, y_, ks, r, n_local, local_test):
     _, nullminps, nullr2s = ftest.minp_stats_batch(u, m_proj, y_, ks, r)
     if not local_test:
         return nullminps, nullr2s, None
-    ycond_ = m_proj @ y_[:, :n_local]
-    # pandas ddof=1 std (reference's M.dot(y_) is a DataFrame); the null
-    # coefficient scale feeds the FDR thresholds directly
-    ycond_ = moments.scale_by_std(ycond_, ddof=1, axis=0)
-    return nullminps, nullr2s, ycond_
+    return nullminps, nullr2s, _null_ycond(m_proj, y_, n_local)
+
+
+def _null_ycond(m_proj, y_, n_local):
+    """The standardized projected nulls of the local test: pandas ddof=1
+    std (reference's M.dot(y_) is a DataFrame); the null coefficient
+    scale feeds the FDR thresholds directly."""
+    return moments.scale_by_std(m_proj @ y_[:, :n_local], ddof=1, axis=0)
 
 
 def _null_ncorrs(namresid, ycond_):
@@ -101,10 +108,11 @@ def _association(NAMsvd, NAMresid, M, r, y, batches, donorids, ks=None,
     ``null_y``: optional precomputed (n, Nnull) matrix of permuted
     phenotypes, for exact regression tests (no random stream can be
     replicated across frameworks) and externally generated nulls.
-    ``seed`` seeds the ``torch.Generator`` of the permutations.
+    ``seed`` seeds the ``torch.Generator`` of the permutations.  ``mesh``:
+    score the null columns over its perms slots and the null coefficients
+    over its (cells, perms) slots; every process of the mesh runs this with
+    the same inputs.
     """
-    if mesh is not None:
-        raise _not_ported("mesh= (several devices)", 8)
     out = select_output(show_progress)
 
     if force_permute_all:
@@ -146,6 +154,9 @@ def _association(NAMsvd, NAMresid, M, r, y, batches, donorids, ks=None,
     else:
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
+            if mesh is not None:
+                # every process must draw the same nulls
+                seed = dist.broadcast_object(mesh, seed)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         if donorids is not None:
@@ -156,8 +167,12 @@ def _association(NAMsvd, NAMresid, M, r, y, batches, donorids, ks=None,
                                                       Nnull)
 
     n_local = min(1000, Nnull)
-    nullminps_dev, nullr2s_dev, ycond_null = _assoc_null(
-        u, m_proj, y_, ks_dev, r, n_local, bool(local_test))
+    if mesh is None:
+        nullminps_dev, nullr2s_dev, ycond_null = _assoc_null(
+            u, m_proj, y_, ks_dev, r, n_local, bool(local_test))
+    else:
+        _, nullminps_dev, nullr2s_dev = sharded.null_minp(
+            u, m_proj, y_, ks_dev, r, mesh)
 
     fdr_dev, fdr_thresholds = None, None
     if local_test:
@@ -175,13 +190,21 @@ def _association(NAMsvd, NAMresid, M, r, y, batches, donorids, ks=None,
             t0, dt = float(fdr_thresholds[0]), float(
                 fdr_thresholds[1] - fdr_thresholds[0])
             nb = len(fdr_thresholds)
-            tails = fdr_ops.null_coef_tail_counts(
-                namresid, ycond_null, n, t0, dt, nb)
+            if mesh is not None:
+                # every (cells, perms) slot fuses its own tile
+                tails = fdr_ops.null_coef_tail_counts_mesh(
+                    namresid, _null_ycond(m_proj, y_, n_local), n, t0, dt,
+                    nb, mesh)
+            else:
+                tails = fdr_ops.null_coef_tail_counts(
+                    namresid, ycond_null, n, t0, dt, nb)
             ranks = fdr_ops._tail_hist_uniform(
                 ncorrs_dev, t0, dt, nb, 1e-8, 1e-5)
             fdr_dev = ("fused", tails, ranks)
         else:
-            nullncorrs = _null_ncorrs(namresid, ycond_null)
+            nullncorrs = (
+                _null_ncorrs(namresid, ycond_null) if mesh is None else
+                sharded.null_ncorrs(namresid, m_proj, y_[:, :n_local], mesh))
             fdr_dev = ("dense", fdr_ops.empirical_fdrs(
                 ncorrs_dev, nullncorrs, fdr_thresholds), None)
 
@@ -338,8 +361,8 @@ def compute_nam_and_reindex(data, y, sid_name, batches, covs, donorids,
 
 def _compute_nam_arrays_and_reindex(data, y, sid_name, batches, covs,
                                     donorids, filter_samples, nsteps,
-                                    show_progress, nam_savepoint=None,
-                                    **kwargs):
+                                    show_progress, mesh=None,
+                                    nam_savepoint=None, **kwargs):
     """Device-resident variant of ``compute_nam_and_reindex``.
 
     Same semantics (row reindex to y's order, sample filter, zero-variance
@@ -347,7 +370,7 @@ def _compute_nam_arrays_and_reindex(data, y, sid_name, batches, covs,
     the small per-column variance mask syncs to the host.
     """
     arrays, kept = nam_arrays(data, sid_name, batches=batches, nsteps=nsteps,
-                              show_progress=show_progress,
+                              show_progress=show_progress, mesh=mesh,
                               nam_savepoint=nam_savepoint, **kwargs)
 
     valid_samples = y.index[filter_samples]
@@ -390,11 +413,10 @@ def association(data, y, sid_name, batches=None, covs=None, donorids=None,
     and per-cell FDRs into ``data.obs[f'{key_added}_fdr']``; returns the
     global permutation p-value (or the full result if ``return_full``).
     ``nam_savepoint`` names an opt-in NAM savepoint file
-    (``utils.checkpoint``); ``mesh`` raises NotImplementedError (not
-    ported).
+    (``utils.checkpoint``).  ``mesh``: a ``parallel.make_mesh`` mesh (or
+    ``parallel.launch.global_mesh`` across processes) over which the
+    diffusion, the null scoring and the local test are sharded.
     """
-    if mesh is not None:
-        raise _not_ported("mesh= (several devices)", 8)
     out = select_output(show_progress)
 
     prof = global_profiler()
@@ -405,8 +427,8 @@ def association(data, y, sid_name, batches=None, covs=None, donorids=None,
         NAM, kept, batches, covs, donorids, filter_samples = (
             _compute_nam_arrays_and_reindex(
                 data, y, sid_name, batches, covs, donorids, filter_samples,
-                nsteps, show_progress, nam_savepoint=nam_savepoint,
-                **kwargs))
+                nsteps, show_progress, mesh=mesh,
+                nam_savepoint=nam_savepoint, **kwargs))
 
     n_valid = filter_samples.sum()
     npcs = min(
@@ -428,7 +450,7 @@ def association(data, y, sid_name, batches=None, covs=None, donorids=None,
             dev.namresid, dev.m, dev.r,
             y[filter_samples].values, batches[filter_samples].values,
             donorids[filter_samples].values if donorids is not None else None,
-            show_progress=show_progress, ks=ks, **kwargs)
+            show_progress=show_progress, ks=ks, mesh=mesh, **kwargs)
     res.update(res_)
     res.set_lazy("nam", NAM.to_df)
     res.kept = kept

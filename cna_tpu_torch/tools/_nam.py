@@ -17,13 +17,19 @@ diagnostic trails (kurtosis, R²) stay in device buffers and are printed
 afterwards.  Only shape-changing decisions (QC column drops) sync a
 small mask to the host.
 
+Under a mesh (``mesh=``, ``parallel.make_mesh``) the diffusion is
+sharded over the cell slots: through the halo exchange
+(``parallel.halo``) on a locality-partitioned graph when the mesh splits
+the cells and the format is the default or 'ell', else through the
+row-sharded fallback (``parallel.sharded.diffusion_step``).  The NAM is
+then gathered to the lead device, where the residualization runs.
+
 Graph formats: 'bucketed' (the default) and 'ell'; a device-resident
 graph (``graph.device.DeviceConnectivities``, what ``pp.neighbors`` stores
 on cuda and on the IVF path) serves both as it is.  'block', 'hybrid' and
 'banded' are opt-in (``set_graph_format``): the graph is locality-ordered
 and packed once on the host, and 'banded' diffuses through the
-hand-written CUDA kernel of ``ops.spmm_banded``.  The ``mesh=`` paths are
-not ported yet (ROADMAP.md queue 1).
+hand-written CUDA kernel of ``ops.spmm_banded``.
 """
 
 from __future__ import annotations
@@ -44,14 +50,10 @@ from ._out import select_output
 
 _ELL_CACHE_KEY = "_cna_tpu_torch_ell_graph"
 _FORMAT_KEY = "_cna_tpu_torch_graph_format"
+_HALO_PLAN_KEY = "_cna_tpu_torch_halo_plan"
+_DIFFUSION_PATH_KEY = "_cna_tpu_torch_diffusion_path"
 _LOCALITY_FORMATS = ("block", "hybrid", "banded")
 _FORMATS = ("ell", "bucketed") + _LOCALITY_FORMATS
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to cna_tpu_torch yet (ROADMAP.md queue 1 "
-        f"item {item})")
 
 
 def get_connectivity(data):
@@ -179,6 +181,68 @@ def get_device_graph(data, fmt=None):
     return graph, ordering
 
 
+def get_halo_plan(data, n_shards):
+    """Halo-exchange plan over ``n_shards`` cell shards, cached in uns.
+
+    The cell axis is locality-ordered first (``graph.partition``: k-means
+    clusters of ``obsm['X_pca']`` grown into graph-connected shards;
+    reverse Cuthill-McKee without an embedding), so each shard owns a
+    graph-clustered block and only true boundary rows enter the exchange.
+    A device-resident graph is materialized as a host CSR for the
+    planning (profiling phases ``halo_partition`` and ``halo_plan``).
+
+    Returns ``(plan, ordering)``; ``ordering`` is the applied
+    ``Reordering`` (None for an imported ``EllGraph``, planned in its own
+    order).  ``(None, None)`` when a plan cannot represent the graph (an
+    ``EllGraph`` carrying COO overflow edges): callers fall back to the
+    row-sharded path.
+    """
+    from ..graph.reorder import permute_graph_unsorted
+    from ..parallel.halo import build_halo_plan, build_halo_plan_csr
+
+    graph = get_connectivity(data)
+    uns = getattr(data, "uns", None)
+    key = f"{_HALO_PLAN_KEY}:{n_shards}"
+    if uns is not None:
+        cached = uns.get(key)
+        if cached is not None and cached[0] is graph:
+            return cached[1], cached[2]
+
+    prof = global_profiler()
+    conn = graph
+    if isinstance(conn, DeviceConnectivities):
+        with prof.phase("halo_partition_csr"):
+            conn = conn.tocsr()  # cached on the object
+    ordering = None
+    if isinstance(conn, EllGraph):
+        if conn.n_overflow:
+            return None, None
+        with prof.phase("halo_plan", cells=conn.n_cells):
+            plan = build_halo_plan(fetch(conn.indices), fetch(conn.weights),
+                                   fetch(conn.colsums_raw), n_shards)
+    else:
+        obsm = getattr(data, "obsm", None) or {}
+        with prof.phase("halo_partition", cells=conn.shape[0]):
+            if "X_pca" in obsm:
+                from ..graph.partition import partition_ordering
+                from ..pp.pca import device_rep
+
+                ordering = partition_ordering(
+                    conn, device_rep(data, obsm["X_pca"]), n_shards)
+            else:
+                from ..graph.reorder import rcm_ordering
+
+                ordering = rcm_ordering(conn)
+        with prof.phase("halo_plan", cells=conn.shape[0]):
+            # unsorted permute: the plan walks the edges in storage
+            # order, so scipy's per-row column sort is skipped
+            plan = build_halo_plan_csr(
+                permute_graph_unsorted(conn, ordering), n_shards)
+    if uns is not None:
+        uns[key] = (graph, plan, ordering)
+    return plan, ordering
+
+
 def _auto_block_rows(n, k, s):
     """Row-block size bounding the gather buffer to ~256M elements."""
     budget = 1 << 28
@@ -188,7 +252,7 @@ def _auto_block_rows(n, k, s):
     return max(1024, budget // per_row)
 
 
-def _adaptive_loop(s0, c_counts, step, maxnsteps, nsteps, n_cells):
+def _adaptive_loop(s0, step, stats, maxnsteps, nsteps):
     """The adaptive diffusion loop, generic over the step.
 
     Replicates reference ``_nam``'s stepping (``_nam.py:56-71``): after
@@ -198,8 +262,10 @@ def _adaptive_loop(s0, c_counts, step, maxnsteps, nsteps, n_cells):
     (or after exactly ``nsteps``), capped at ``maxnsteps``.  The host
     reads one scalar per step, and only once the stopping rule can fire.
 
-    ``step``: callable s -> s' (one diffusion update).  ``n_cells``:
-    number of real cells when ``s0`` carries zero padding rows.
+    ``step``: callable s -> s' (one diffusion update); ``stats``:
+    callable (s', s or None for the all-zero start) -> (median kurtosis,
+    per-column R²), both on ``s0.device``: ``_local_stats`` for a
+    tensor state, ``parallel.sharded.diffusion_stats`` for a sharded one.
 
     Returns (s_final, steps_taken, medkurt trail, R² trail); the trails
     are (maxnsteps,) device buffers whose entries past ``steps_taken``
@@ -208,15 +274,12 @@ def _adaptive_loop(s0, c_counts, step, maxnsteps, nsteps, n_cells):
     opts = dict(dtype=s0.dtype, device=s0.device)
     mk_buf = torch.full((maxnsteps,), torch.inf, **opts)
     r2_buf = torch.full((maxnsteps,), torch.inf, **opts)
-    s, old_s = s0, torch.zeros_like(s0)
+    s, old_s = s0, None
     prevmedkurt = torch.tensor(torch.inf, **opts)
     i = 0
     while i < maxnsteps:
         s_new = step(s)
-        snormed = s_new / c_counts[None, :]
-        kurt = moments.kurtosis(snormed, axis=1)[:n_cells]
-        medkurt = moments.median(kurt)
-        r2 = moments.column_r2_counted(s_new, old_s, n_cells)
+        medkurt, r2 = stats(s_new, old_s)
         # +inf marks zero-variance columns; numpy's percentile would be
         # NaN if any column were NaN, so propagate the sentinel the same way
         inf_r2 = torch.isinf(r2)
@@ -236,6 +299,17 @@ def _adaptive_loop(s0, c_counts, step, maxnsteps, nsteps, n_cells):
     return s, i, mk_buf, r2_buf
 
 
+def _local_stats(c_counts, n_cells):
+    """The loop's statistics of a tensor state whose rows past
+    ``n_cells`` are padding."""
+    def stats(s_new, old_s):
+        kurt = moments.kurtosis(s_new / c_counts[None, :], axis=1)[:n_cells]
+        old = torch.zeros_like(s_new) if old_s is None else old_s
+        return (moments.median(kurt),
+                moments.column_r2_counted(s_new, old, n_cells))
+    return stats
+
+
 def _diffuse_adaptive(s0, graph, colsums, c_counts, self_weight,
                       maxnsteps=15, nsteps=None, block_rows=None,
                       n_true=None):
@@ -246,7 +320,49 @@ def _diffuse_adaptive(s0, graph, colsums, c_counts, self_weight,
         return spmm.diffusion_step(s, graph, colsums, self_weight,
                                    block_rows=block_rows)
 
-    return _adaptive_loop(s0, c_counts, step, maxnsteps, nsteps, n_cells)
+    return _adaptive_loop(s0, step, _local_stats(c_counts, n_cells),
+                          maxnsteps, nsteps)
+
+
+def _diffuse_adaptive_halo(s0, plan, c_counts, mesh, self_weight,
+                           maxnsteps=15, nsteps=None, n_true=None):
+    """Adaptive diffusion through the halo-exchange sharded SpMM: per
+    step each cell slot exchanges only the ghost rows its neighbours
+    reference.  ``s0`` and the result are ``Sharded`` over the cell rows;
+    the stopping statistics leave out the shard-padding rows
+    (``n_true``)."""
+    from ..parallel.halo import halo_diffusion_step
+    from ..parallel.sharded import diffusion_stats
+
+    n_cells = s0.shape[0] if n_true is None else n_true
+
+    def step(s):
+        return halo_diffusion_step(s, plan, mesh, self_weight)
+
+    def stats(s_new, old_s):
+        return diffusion_stats(s_new, old_s, c_counts, n_cells)
+
+    return _adaptive_loop(s0, step, stats, maxnsteps, nsteps)
+
+
+def _diffuse_adaptive_rows(s0, graph, colsums, c_counts, mesh, self_weight,
+                           maxnsteps=15, nsteps=None):
+    """Adaptive diffusion through the row-sharded fallback
+    (``parallel.sharded.diffusion_step``, the state all-gathered every
+    step) of an ``EllGraph``."""
+    from ..parallel import sharded
+
+    graph_sh = sharded.shard_graph(graph, mesh)
+    n_cells = s0.shape[0]
+
+    def step(s):
+        return sharded.diffusion_step(s, graph_sh, colsums, self_weight,
+                                      mesh)
+
+    def stats(s_new, old_s):
+        return sharded.diffusion_stats(s_new, old_s, c_counts, n_cells)
+
+    return _adaptive_loop(s0, step, stats, maxnsteps, nsteps)
 
 
 def diffuse_stepwise(data, s, maxnsteps=15, show_progress=False, self_weight=1):
@@ -322,14 +438,16 @@ def _onehot_device(codes, n_samples, dtype, device):
 
 
 def _nam(data, sid_name, sids=None, nsteps=None, maxnsteps=15, self_weight=1,
-         show_progress=False) -> NamArrays:
+         show_progress=False, mesh=None) -> NamArrays:
     """Build the NAM via diffusion with the adaptive kurtosis stop.
 
     Mirrors reference ``_nam`` (``_nam.py:44-76``): one-hot cells->samples,
     diffuse until the median per-cell excess kurtosis (across samples, on
     count-normalized state) drops by <3 between steps (minimum 3 steps),
     or exactly ``nsteps`` if given; normalize by per-sample cell counts and
-    transpose.
+    transpose.  Records the diffusion path taken in
+    ``uns['_cna_tpu_torch_diffusion_path']``: 'halo', 'gspmd' (the
+    row-sharded fallback under a mesh) or 'local'.
     """
     out = select_output(show_progress)
 
@@ -361,9 +479,63 @@ def _nam(data, sid_name, sids=None, nsteps=None, maxnsteps=15, self_weight=1,
 
     uns = getattr(data, "uns", None)
     user_fmt = uns.get(_FORMAT_KEY) if uns is not None else None
-    # default format: degree-bucketed ELL (exact, ~nnz gathered slots)
-    graph, ordering = get_device_graph(
-        data, fmt=None if user_fmt is not None else "bucketed")
+
+    # ---- the sharded path: explicit halo exchange ----
+    # When the mesh splits the cell axis, each cell slot diffuses its own
+    # rows and receives only the ghost rows its edges reference.  An
+    # explicit non-ELL format request takes the fallback below (those
+    # formats have no halo plan).
+    if mesh is not None:
+        from ..parallel import dist
+        from ..parallel.mesh import CELLS, Sharded, cell_rows
+
+        cell_shards = mesh.shape[CELLS]
+        if cell_shards > 1 and user_fmt in (None, "ell"):
+            plan, halo_order = get_halo_plan(data, cell_shards)
+            if plan is not None:
+                from ..parallel.halo import place_plan
+
+                dtype = plan.dtype
+                n_pad = plan.n_shards * plan.shard_rows
+                codes_h = (codes[halo_order.perm] if halo_order is not None
+                           else codes)
+                codes_p = np.pad(codes_h, (0, n_pad - codes_h.shape[0]),
+                                 constant_values=-1)
+                rows = cell_rows(mesh)
+                s0 = Sharded(rows, (n_pad, n_samples), dtype, {
+                    cp: _onehot_device(codes_p[rows.bounds((n_pad,), cp)],
+                                       n_samples, dtype, mesh.device(cp))
+                    for cp in rows.primaries if mesh.is_local(cp)})
+                c_counts = torch.as_tensor(c_counts_host, dtype=dtype,
+                                           device=mesh.lead_device)
+                s, steps_taken, mk_buf, r2_buf = _diffuse_adaptive_halo(
+                    s0, place_plan(plan, mesh), c_counts, mesh,
+                    self_weight, maxnsteps=maxnsteps, nsteps=nsteps,
+                    n_true=n_cells)
+                if uns is not None:
+                    uns[_DIFFUSION_PATH_KEY] = "halo"
+                if out.enabled:
+                    out(f"\thalo diffusion over {cell_shards} cell shards: "
+                        f"ghost fraction {plan.ghost_fraction():.3f}")
+                    _print_diffusion_trail(out, mk_buf, r2_buf, steps_taken,
+                                           nsteps, maxnsteps)
+                # back to the caller's cell order (drops padding rows too)
+                s = dist.gather(s)
+                if halo_order is not None:
+                    s = s[torch.as_tensor(halo_order.inv, device=s.device)]
+                else:
+                    s = s[:n_cells]
+                nam = (s / c_counts[None, :]).T  # (samples, cells)
+                return NamArrays(nam=nam, samples=samples, cells=cells,
+                                 nsteps=steps_taken)
+
+    # default format: degree-bucketed ELL (exact, ~nnz gathered slots);
+    # the row-sharded fallback under a mesh splits plain ELL rows evenly,
+    # so it keeps 'ell' unless the user set a format
+    fmt = None
+    if user_fmt is None:
+        fmt = "ell" if mesh is not None else "bucketed"
+    graph, ordering = get_device_graph(data, fmt=fmt)
     is_block = ordering is not None or not isinstance(graph, EllGraph)
     dtype, dev = graph.dtype, graph.device
     if is_block:
@@ -386,10 +558,25 @@ def _nam(data, sid_name, sids=None, nsteps=None, maxnsteps=15, self_weight=1,
     c_counts = torch.as_tensor(c_counts_host, dtype=dtype, device=dev)
     colsums = graph.colsums(self_weight)
 
-    s, steps_taken, mk_buf, r2_buf = _diffuse_adaptive(
-        s0, graph, colsums, c_counts, self_weight,
-        maxnsteps=maxnsteps, nsteps=nsteps, block_rows=block_rows,
-        n_true=n_true)
+    if mesh is not None and not is_block:
+        # an EllGraph: rows over the cell slots, the scaled state
+        # all-gathered each step.  Other graphs run unsharded, as the TPU
+        # package's GSPMD program runs a graph it does not shard.
+        from ..parallel import dist
+        from ..parallel.mesh import cell_rows, place
+
+        c_counts = c_counts.to(mesh.lead_device)
+        s, steps_taken, mk_buf, r2_buf = _diffuse_adaptive_rows(
+            place(s0, cell_rows(mesh)), graph, colsums, c_counts, mesh,
+            self_weight, maxnsteps=maxnsteps, nsteps=nsteps)
+        s = dist.gather(s)
+    else:
+        s, steps_taken, mk_buf, r2_buf = _diffuse_adaptive(
+            s0, graph, colsums, c_counts, self_weight,
+            maxnsteps=maxnsteps, nsteps=nsteps, block_rows=block_rows,
+            n_true=n_true)
+    if uns is not None:
+        uns[_DIFFUSION_PATH_KEY] = "gspmd" if mesh is not None else "local"
     if out.enabled:
         _print_diffusion_trail(out, mk_buf, r2_buf, steps_taken, nsteps,
                                maxnsteps)
@@ -614,18 +801,20 @@ def _resid_nam(NAM, covs, batches, ridges=None, npcs=None, show_progress=False):
 
 
 def nam(data, sid_name, batches=None, nsteps=None, self_weight=1,
-        max_frac_pcs=0.15, suffix="", ks=None, show_progress=False, **kwargs):
+        max_frac_pcs=0.15, suffix="", ks=None, show_progress=False,
+        mesh=None, **kwargs):
     """Compute and QC the NAM (public wrapper, reference ``_nam.py:179-193``).
 
     ``max_frac_pcs``/``ks``/``**kwargs`` are accepted and ignored so that
     ``association`` can forward one kwargs bag to both pipeline stages,
-    exactly as the reference does.
+    exactly as the reference does.  ``mesh``: diffuse over its cell slots
+    (``nam_arrays``).
 
     Returns (NAM DataFrame [samples x kept-cells] as float, keep bool array).
     """
     nam_qc, keep = nam_arrays(data, sid_name, batches=batches, nsteps=nsteps,
                               self_weight=self_weight,
-                              show_progress=show_progress)
+                              show_progress=show_progress, mesh=mesh)
     return nam_qc.to_df().astype(float), keep
 
 
@@ -637,11 +826,10 @@ def nam_arrays(data, sid_name, batches=None, nsteps=None, self_weight=1,
     savepoint (see ``utils.checkpoint``).  The reference deliberately
     never caches the NAM (its README.md:22, v0.2.0), so this is opt-in;
     a changed graph/sample-assignment/step-count misses rather than
-    serving a stale matrix.  ``mesh`` is not ported yet and raises
-    NotImplementedError when given.
+    serving a stale matrix.  ``mesh``: a ``parallel.make_mesh`` mesh whose
+    cell slots share the diffusion (``_nam``); the NAM comes back on its
+    lead device.
     """
-    if mesh is not None:
-        raise _not_ported("mesh= (several devices)", 8)
     out = select_output(show_progress)
 
     if batches is None:
@@ -667,7 +855,7 @@ def nam_arrays(data, sid_name, batches=None, nsteps=None, self_weight=1,
     if arrays is None:
         out("computing NAM")
         arrays = _nam(data, sid_name, nsteps=nsteps, self_weight=self_weight,
-                      show_progress=show_progress)
+                      show_progress=show_progress, mesh=mesh)
         if nam_savepoint is not None:
             ckpt.save_nam(nam_savepoint, arrays.to_df(), fingerprint,
                           nsteps=arrays.nsteps)

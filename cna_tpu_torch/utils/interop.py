@@ -1,7 +1,7 @@
 """State carried across from the TPU package as numpy arrays.
 
 CNA has no learned parameters; the state that crosses between the two
-packages is the packed graph and the IVF index.  These converters turn
+packages is the packed graph, the IVF index and the halo plan.  These converters turn
 the fields of the TPU package's objects (pulled to numpy) into the
 port's, so that both packages can diffuse the very same packed graph and
 search the very same index.  They import nothing of the TPU package.
@@ -130,3 +130,26 @@ def fine_index_from_numpy(x4, cents, blk_counts, blk_csum, layout_rows,
         order=np.asarray(order, dtype=np.int32),
         g=int(g), q_blocks=int(q_blocks), n=int(n), d_pad=width,
         f_real=int(f_real), _csum_host=blk_csum)
+
+
+def halo_plan_from_numpy(bucket_indices, bucket_weights, row_pos,
+                         send_rounds, colsums, n_cells, n_ghosts=0,
+                         rounds=(), out_permuted=True):
+    """The port's ``parallel.halo.HaloPlan`` from the fields of the TPU
+    package's (``parallel/halo.py``), name for name, as numpy arrays and
+    plain values: both packages can then diffuse over one plan.  The
+    tensors stay on the CPU until ``parallel.halo.place_plan``."""
+    from ..parallel.halo import HaloPlan
+
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    return HaloPlan(
+        bucket_indices=tuple(t(i).to(torch.int32) for i in bucket_indices),
+        bucket_weights=tuple(t(w) for w in bucket_weights),
+        row_pos=t(row_pos).to(torch.int32),
+        send_rounds=tuple(t(s).to(torch.int32) for s in send_rounds),
+        colsums=t(colsums), n_cells=int(n_cells), n_ghosts=int(n_ghosts),
+        rounds=tuple((int(r), tuple(int(j) for j in js))
+                     for r, js in rounds),
+        out_permuted=bool(out_permuted))

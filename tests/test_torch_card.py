@@ -586,3 +586,32 @@ def test_float_checks_see_the_kernels_output(monkeypatch):
         with pytest.raises(FloatingPointError, match="'knn_exact'"):
             checks.kernel_outputs(knn_ops.KERNEL, bad)
     assert seen == [(knn_ops.KERNEL, ["cuda", "cuda"])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("perms", [1, 2])
+def test_halo_step_on_the_card_matches_the_cpu(perms):
+    """The halo step over four slots of one card (4 x 1 and 2 x 2) in
+    float64 against the same step over CPU slots: one plan, the same
+    sums (rtol 1e-12)."""
+    from cna_tpu_torch.parallel import halo, make_mesh
+
+    need_cuda()
+    n = 3000
+    a = sp.random(n, n, density=0.004, random_state=2, format="csr")
+    a = (a + a.T).tocsr()
+    cells = 4 // perms
+    plan = halo.build_halo_plan_csr(a, cells, dtype=np.float64)
+    n_pad = plan.n_shards * plan.shard_rows
+    s = torch.from_numpy(np.pad(
+        np.random.default_rng(1).standard_normal((n, 20)),
+        ((0, n_pad - n), (0, 0))))
+    card = make_mesh(["cuda:0"] * 4, perms=perms)
+    host = make_mesh(["cpu"] * 4, perms=perms)
+    got, ref = s, s
+    for _ in range(3):
+        got = halo.halo_diffusion_step(got, plan, card, 1.0)
+        ref = halo.halo_diffusion_step(ref, plan, host, 1.0)
+    assert all(t.device.type == "cuda" for t in got.shards.values())
+    np.testing.assert_allclose(np.asarray(got)[:n], np.asarray(ref)[:n],
+                               rtol=1e-12, atol=1e-14)

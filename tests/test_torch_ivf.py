@@ -470,9 +470,16 @@ def test_ivf_handles_unbalanced_clusters():
 
 
 def test_devices_argument_names_its_roadmap_item():
-    x = np.random.RandomState(2).randn(500, 4).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ivf_knn(x, 10, devices=["cuda:0", "cuda:1"])
+    """``devices=`` (the item that ROADMAP queue 1 item 8 ported) deals
+    the slot batches over its devices, each against a replica of the
+    index: the result equals the one-device search bit for bit, pilot
+    included."""
+    x = np.random.RandomState(2).randn(12_000, 4).astype(np.float32)
+    one = ivf_knn(x, 10, n_clusters=256, g=64, u0=1, seed=0)
+    two = ivf_knn(x, 10, n_clusters=256, g=64, u0=1, seed=0,
+                  devices=["cpu", "cpu"])
+    np.testing.assert_array_equal(two[0], one[0])
+    np.testing.assert_array_equal(two[1], one[1])
 
 
 # --- the CUDA kernel's TF32 candidate filter (ops.ivf.filter_bound) ---------

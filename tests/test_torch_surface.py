@@ -161,17 +161,23 @@ def _demo():
 
 
 def test_unported_paths_raise_not_implemented():
-    """What still waits raises NotImplementedError naming its ROADMAP
-    item (several devices); an unknown format is a ValueError."""
+    """The several-device paths that once raised NotImplementedError now
+    run through the public entry points (``mesh=``, ``devices=``); an
+    unknown format is still a ValueError."""
     d, y = _demo()
     with pytest.raises(ValueError, match="unknown graph format"):
         ct.tl.set_graph_format(d, "csr")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ct.tl.association(d, y, "sample", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ct.tools._nam.nam_arrays(d, "sample", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ct.pp.ivf_knn(d.obsm["X_pca"], 5, devices=["cuda:0", "cuda:1"])
+    mesh = ct.parallel.make_mesh(["cpu"] * 4, perms=2)
+    p_single = ct.tl.association(d, y, "sample", Nnull=50, seed=1)
+    assert ct.tl.association(d, y, "sample", Nnull=50, seed=1,
+                             mesh=mesh) == p_single
+    assert d.uns["_cna_tpu_torch_diffusion_path"] == "halo"
+    arrays, keep = ct.tools._nam.nam_arrays(d, "sample", mesh=mesh)
+    assert arrays.nam.shape == (12, d.n_obs) and keep.all()
+    nam_df, _ = ct.tl.nam(d, "sample", mesh=mesh)
+    assert nam_df.shape == (12, d.n_obs)
+    idx, dist = ct.pp.ivf_knn(d.obsm["X_pca"], 5, devices=["cpu", "cpu"])
+    assert idx.shape == dist.shape == (d.n_obs, 5)
 
 
 @pytest.mark.parametrize("fmt", ["block", "hybrid", "banded"])
