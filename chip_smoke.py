@@ -76,6 +76,23 @@ Phases, each of which must pass (any failure exits non-zero):
     sharded nulls running; it cannot show an interconnect (the exchange
     is device-local copies) or a two-card NCCL exchange.
 
+12. the north-star configuration (``bench.py``'s knobs
+    ``CNA_BENCH_CELLS=1000000 CNA_BENCH_SAMPLES=200 CNA_BENCH_NNULL=10000``)
+    through ``bench_torch.bench``: 200 samples x 5,000 cells, a cold graph
+    build and warm ones on two more datasets (auto -> IVF -> the scoring
+    kernel), two associations of 10,000 permutations; its JSON line is
+    logged and (a) gated: kNN method 'ivf', verify recall >= 0.9, at least
+    one scoring kernel launch per graph build, finite p in (0, 1] and
+    k >= 1 for both associations.  (b) The cold association's seed again:
+    equal p and k, ``ncorrs`` correlation above 0.99999 (the COO tail sums
+    with atomics); ms per diffusion step of that graph at 200 and at 50
+    columns.  (c) The local test's fused FDR branch (1M cells x 1,000
+    nulls) against the dense (cells x nulls) matrix on one residualized
+    NAM and one ``null_y``.  (d) Phase 7 again at 200 samples x 500 cells
+    (100,000 cells), with its limits.  (e) ``bench_torch.bench()`` at its
+    defaults (100,000 cells x 50 samples x 1,000 permutations): one exact
+    kNN kernel launch per graph build.
+
 Phase 5 also lays out its 1,000,000-cell IVF graph with ``pp.umap``
 (init 'auto' -> 'pca', 200 epochs): the edge, init and SGD seconds, ms per
 epoch (CUDA events, a second run of the epochs held to the first bit for
@@ -84,7 +101,8 @@ rate, and the layout quality bar on 2,000 cells.
 
 Each path of phases 4, 5, 8, 10 and 11 (b) runs with the kernel launch
 counts set to 0 just before it (phase 10: before ``pp.neighbors``) and
-read just after.
+read just after; phase 12's bench does so around each graph build and
+each association.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the ``{"ok": true, "device": ...}`` line.  Without a CUDA
@@ -187,6 +205,26 @@ BANDED_RTOL = {"float32": 1e-5, "float64": 1e-12}
 FORMAT_NAM_RTOL = 1e-4
 FORMAT_NCORR_MIN = 0.9999
 FORMAT_NSTEPS = 3  # diffusion steps of the fixed-step NAM comparisons
+
+# phase 12, the north-star configuration: bench.py's knobs
+# CNA_BENCH_CELLS=1000000 CNA_BENCH_NNULL=10000 CNA_BENCH_SAMPLES=200 (the
+# configuration of BENCH_NORTHSTAR_r05.json) through bench_torch.bench, as
+# (cells, permutations, samples)
+NORTHSTAR = (1_000_000, 10_000, 200)
+# card vs CPU again at 200 samples x 500 cells, the north-star's width
+WIDE_CARD_VS_CPU = (200, 500)
+# one seed twice on the card: the default format's COO tail sums with
+# index_add_ atomics (ops/spmm.py), so the two NAMs differ in the last bits
+# and ncorrs correlate, not agree bit for bit
+SAME_SEED_NCORR_MIN = 0.99999
+# the fused FDR branch against the dense one on the same inputs: both
+# bucket float32 null coefficients, the fused one scaled by a float32 1/n
+# and computed in 32,768-cell blocks, the dense one divided by n in one
+# product, so a coefficient within an ulp of a threshold may land on the
+# other side of it (a few of the 1e9); and the dense curve divides its
+# counts in float32, the fused one in float64 (~1e-7 relative)
+FDR_FUSED_RTOL = 1e-4
+FDR_FUSED_ATOL = 1e-6
 
 # phase 10, the atlas entry path: 20,000 genes, the first 50 carrying
 # synthetic_dataset's case signal (its continuous trajectories, structure
@@ -895,11 +933,12 @@ def knn_lists(d):
     return ids, dists
 
 
-def card_vs_cpu(ct, card="cuda"):
-    """The chain at 5,000 cells on the card in float32 against the CPU in
-    float64, stage by stage (each CPU stage takes the card's input to
-    that stage, so that float32 rounding upstream cannot move it), and
-    end to end.  ``card`` is the device of the float32 run."""
+def card_vs_cpu(ct, card="cuda", n_samples=50, cells_per_sample=100):
+    """The chain at ``n_samples`` x ``cells_per_sample`` cells (5,000 by
+    default) on the card in float32 against the CPU in float64, stage by
+    stage (each CPU stage takes the card's input to that stage, so that
+    float32 rounding upstream cannot move it), and end to end.  ``card``
+    is the device of the float32 run."""
     import importlib
 
     import scipy.sparse as sp
@@ -911,8 +950,8 @@ def card_vs_cpu(ct, card="cuda"):
         ct.config.set_device(dev)
         ct.config.enable_x64(x64)
         d, samplem = ct.data.synthetic_dataset(
-            n_samples=50, cells_per_sample=100, n_genes=50, seed=1,
-            dtype=np.float64 if x64 else np.float32)
+            n_samples=n_samples, cells_per_sample=cells_per_sample,
+            n_genes=50, seed=1, dtype=np.float64 if x64 else np.float32)
         if scores is None:
             ct.pp.pca(d, n_comps=20)
         else:
@@ -930,7 +969,8 @@ def card_vs_cpu(ct, card="cuda"):
                     k=res.k, p=res.p, nam=res.nam.to_numpy())
 
     _, samplem = ct.data.synthetic_dataset(
-        n_samples=50, cells_per_sample=100, n_genes=50, seed=1)
+        n_samples=n_samples, cells_per_sample=cells_per_sample, n_genes=50,
+        seed=1)
     ys = samplem["case"].astype(float).to_numpy()
     ys = (ys - ys.mean()) / ys.std(ddof=0)
     rng = np.random.RandomState(7)
@@ -1902,6 +1942,153 @@ def atlas_entry_path(ct, dev="cuda", n_samples=50, cells_per_sample=2000,
     return counts, rec
 
 
+def fused_vs_dense(ct, d, y, nnull, seed=3):
+    """The local test's two FDR branches on the same residualized NAM and
+    the same ``null_y``: the fused tail counts that an association of
+    ``d`` takes (cells x 1,000 local nulls above
+    ``_FUSED_FDR_MIN_ELEMENTS``) against the dense (cells x 1,000) null
+    coefficient matrix.  Both run ``tools._association._association`` on
+    one NAM, so that the diffusion's atomics cannot move the thresholds."""
+    import torch
+
+    from cna_tpu_torch.tools import _association as assoc
+    from cna_tpu_torch.tools._nam import _resid_nam
+
+    batches, keep = assoc.check_inputs(d, y, "id", None, None, None, False)
+    arrays, _, batches, _, _, keep = assoc._compute_nam_arrays_and_reindex(
+        d, y, "id", batches, None, None, keep, None, False)
+    n = int(keep.sum())
+    res = _resid_nam(arrays, None, batches[keep],
+                     npcs=min(n, max(10, int(0.15 * n))))
+    dev = res._dev
+    ys = y[keep].to_numpy()
+    ys = (ys - ys.mean()) / ys.std(ddof=0)
+    rng = np.random.RandomState(seed)
+    null_y = np.stack([ys[rng.permutation(n)] for _ in range(nnull)], 1)
+    n_cells = int(dev.namresid.shape[1])
+    if n_cells * min(1000, nnull) <= assoc._FUSED_FDR_MIN_ELEMENTS:
+        raise AssertionError(f"{n_cells} cells do not take the fused branch")
+
+    def run():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = assoc._association(
+            (dev.u, dev.svs, dev.v), dev.namresid, dev.m, dev.r,
+            y[keep].values, batches[keep].values, None, Nnull=nnull,
+            null_y=null_y)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated() / 1e9
+
+    fused, fused_s, fused_gb = run()
+    threshold = assoc._FUSED_FDR_MIN_ELEMENTS
+    assoc._FUSED_FDR_MIN_ELEMENTS = n_cells * 1000
+    try:
+        dense, dense_s, dense_gb = run()
+    finally:
+        assoc._FUSED_FDR_MIN_ELEMENTS = threshold
+    a = fused.fdrs.fdr.to_numpy(dtype=np.float64)
+    b = dense.fdrs.fdr.to_numpy(dtype=np.float64)
+    rec = dict(cells=n_cells, nulls=min(1000, nnull),
+               fused_s=fused_s, dense_s=dense_s, fused_peak_gb=fused_gb,
+               dense_peak_gb=dense_gb, thresholds=len(b),
+               p=(fused.p, dense.p), k=(fused.k, dense.k))
+    same_grid = np.array_equal(fused.fdrs.threshold, dense.fdrs.threshold)
+    rec["same_grid"] = same_grid
+    if same_grid:
+        diff = np.abs(a - b)
+        rec["fdr_max_abs_diff"] = float(diff.max())
+        rec["fdr_max_rel_diff"] = float(np.max(
+            np.divide(diff, b, out=np.zeros_like(diff), where=b > 0)))
+        rec["fdr_thresholds_differ"] = int(np.count_nonzero(diff))
+    if not (same_grid and fused.p == dense.p and fused.k == dense.k
+            and np.isfinite(a).all()
+            and np.array_equal(fused.fdrs.num_detected,
+                               dense.fdrs.num_detected)
+            and np.allclose(a, b, rtol=FDR_FUSED_RTOL,
+                            atol=FDR_FUSED_ATOL)):
+        raise AssertionError(f"the fused and dense FDR branches disagree: "
+                             f"{rec}")
+    return rec
+
+
+def northstar_phase(ct):
+    """Phase 12: the north-star configuration and bench.py's default one
+    through ``bench_torch.bench``, with gates (a) to (e) (module
+    docstring).  Returns (north-star record, default record, checks)."""
+    import torch
+
+    import bench_torch
+
+    cells, nnull, samples = NORTHSTAR
+    ct.config.set_device("cuda")
+    ct.config.enable_x64(False)
+    t0 = time.perf_counter()
+    keep = {}
+    ns = bench_torch.bench(cells, nnull, samples, keep=keep)
+    checks = {"northstar_bench_s": time.perf_counter() - t0}
+    log("north-star bench:", json.dumps(ns))
+    ex = ns["extras"]
+    failed = []
+    if ex["knn_method_resolved"] != "ivf":
+        failed.append(f"kNN method {ex['knn_method_resolved']!r}")
+    if not ex.get("ivf", {}).get("verify_recall", 0) >= IVF_MIN_RECALL:
+        failed.append("IVF recall")
+    for build in ("graph_cold", "graph_warm_first", "graph_warm"):
+        if ex["kernel_launches"][build].get("ivf_score", 0) < 1:
+            failed.append(f"no ivf_score launch in {build}")
+    for p, k in zip(ex["p"], ex["k"]):
+        if not (np.isfinite(p) and 0 < p <= 1 and k >= 1):
+            failed.append(f"p {p}, k {k}")
+    if failed:
+        raise AssertionError(f"north-star bench: {failed}")
+
+    # (b) the cold association's seed again
+    d, y, cold = keep["d"], keep["y"], keep["res_cold"]
+    again_s, again = bench_torch.run_association(d, y, nnull, seed=0)
+    r = float(np.corrcoef(cold.ncorrs, again.ncorrs)[0, 1])
+    checks["same_seed"] = dict(p=(cold.p, again.p), k=(cold.k, again.k),
+                               ncorrs_corr=r, seconds=again_s)
+    if cold.p != again.p or cold.k != again.k \
+            or not r > SAME_SEED_NCORR_MIN:
+        raise AssertionError(f"one seed twice: {checks['same_seed']}")
+    # a diffusion step of this graph at the north-star's width and at the
+    # 50 samples of every earlier path
+    checks["step_ms"] = {f"s{s}": step_ms(d, "bucketed", s)
+                         for s in (samples, 50)}
+    del cold, again, keep
+
+    # (c) the fused FDR branch against the dense one at this size
+    checks["fdr_fused_vs_dense"] = fused_vs_dense(ct, d, y, nnull)
+    del d, y
+    torch.cuda.empty_cache()
+
+    # (d) card vs CPU at the north-star's width
+    t0 = time.perf_counter()
+    checks["card_vs_cpu_200"] = card_vs_cpu(
+        ct, n_samples=WIDE_CARD_VS_CPU[0],
+        cells_per_sample=WIDE_CARD_VS_CPU[1])
+    checks["card_vs_cpu_200_s"] = time.perf_counter() - t0
+    ct.config.set_device("cuda")
+    ct.config.enable_x64(False)
+
+    # (e) bench.py's defaults: 100,000 cells x 50 samples x 1,000
+    # permutations, the exact kNN kernel once per graph build
+    t0 = time.perf_counter()
+    default = bench_torch.bench()
+    checks["default_bench_s"] = time.perf_counter() - t0
+    log("default bench:", json.dumps(default))
+    ex = default["extras"]
+    launches = ex["kernel_launches"]
+    if ex["knn_method_resolved"] != "pallas" or any(
+            launches[b].get("knn_exact", 0) != 1
+            for b in ("graph_cold", "graph_warm_first", "graph_warm")) \
+            or not all(np.isfinite(p) and 0 < p <= 1 for p in ex["p"]):
+        raise AssertionError(f"default bench: {ex}")
+    return ns, default, checks
+
+
 def compare_with_tree(tree, inputs, exact_res):
     """``--against DIR``: the package of the checkout at ``tree`` runs
     ``knn_exact`` on ``inputs`` and the 100,000-cell path in a second
@@ -2099,6 +2286,15 @@ def main(argv) -> int:
     log("mesh (c) NCCL process group of one, 100k association:",
         json.dumps(nccl_rec))
     log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    del d100k, y100k
+    torch.cuda.empty_cache()
+
+    # the north-star configuration and bench.py's default one, through
+    # bench_torch (phase 12)
+    t0 = time.perf_counter()
+    ns_rec, default_rec, ns_checks = northstar_phase(ct)
+    log("north-star checks:", json.dumps(ns_checks))
+    log(f"north-star phase: {time.perf_counter() - t0:.1f} s")
 
     main_case = cases[0]
     kernels = [{
@@ -2127,6 +2323,11 @@ def main(argv) -> int:
         "mma_warp_cycles": main_case["mma_warp_cycles"],
         "digest": main_case["digest"],
         "hmma_opcodes": hmma[knn.KERNEL],
+        # launches per graph build of bench_torch at its defaults (phase 12)
+        "bench_launches": {b: default_rec["extras"]["kernel_launches"][b]
+                           .get(knn.KERNEL, 0) for b in (
+                               "graph_cold", "graph_warm_first",
+                               "graph_warm")},
     }, {
         # times, bound and yardstick on every IVF_SHARE-th slot of the 1M
         # index (what the plain version is run on); "all_slots" holds the
@@ -2159,6 +2360,11 @@ def main(argv) -> int:
         "exact_share": ivf_main["exact_share"],
         "same_id_share": ivf_main["same_id_share"],
         "hmma_opcodes": hmma[ivf.KERNEL],
+        # launches per graph build of the north-star bench (phase 12)
+        "northstar_launches": {b: ns_rec["extras"]["kernel_launches"][b]
+                               .get(ivf.KERNEL, 0) for b in (
+                                   "graph_cold", "graph_warm_first",
+                                   "graph_warm")},
     }, {
         # the in-band product at the 1M-cell manifold graph's own shape;
         # the library yardstick is torch.sparse.mm of the in-band edges

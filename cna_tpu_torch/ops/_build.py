@@ -35,6 +35,8 @@ KERNELS = ("knn_exact", "ivf_score", "banded_spmm")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LAUNCHES: dict[str, int] = {}
+# nvcc seconds of every kernel compiled by this process
+_BUILD_SECONDS: dict[str, float] = {}
 
 
 def count_launch(name: str) -> None:
@@ -140,7 +142,15 @@ def build(name: str) -> float:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
                            f"{res.returncode}\n{res.stdout}")
     os.replace(tmp, out)
-    return time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    _BUILD_SECONDS[name] = seconds
+    return seconds
+
+
+def build_seconds() -> dict:
+    """``{name: nvcc seconds}`` of the kernels this process compiled (a
+    kernel found built already is not listed)."""
+    return dict(_BUILD_SECONDS)
 
 
 def build_all(names=KERNELS) -> dict:

@@ -55,25 +55,40 @@ def _knn_query_block(x, q_ids, sq_norms, k, key_block):
     otherwise become ``rho`` of the fuzzy kernel in the rows where it
     rounds positive.
 
+    Each key block's negated distances are written next to the running
+    top-k in one (Q, k + key_block) buffer that every block reuses: a
+    fresh tile per block costs its first-touch page faults on the CPU,
+    which took most of the search's time there.
+
     Returns (neg_sq_dists (Q, k) descending, indices (Q, k) int64).
     """
     q = x[q_ids]
     nq = q.shape[0]
     n = x.shape[0]
+    dev = q.device
+    width = min(key_block, n)
     q_norms = sq_norms[q_ids, None]  # (Q, 1)
-    q_ids = q_ids[:, None]
-    best_d = torch.full((nq, k), -torch.inf, dtype=q.dtype, device=q.device)
-    best_i = torch.zeros((nq, k), dtype=torch.int64, device=q.device)
+    cat_d = torch.empty((nq, k + width), dtype=q.dtype, device=dev)
+    cat_d[:, :k] = -torch.inf
+    cross_buf = torch.empty((nq, width), dtype=q.dtype, device=dev)
+    best_i = torch.zeros((nq, k), dtype=torch.int64, device=dev)
     for start in range(0, n, key_block):
         xb = x[start:start + key_block]
-        cross = q @ xb.T  # (Q, B)
-        d2 = q_norms + sq_norms[None, start:start + key_block] - 2.0 * cross
-        idx = torch.arange(start, start + xb.shape[0], device=q.device)
-        d2 = d2.masked_fill(idx[None, :] == q_ids, 0.0)
-        cat_d = torch.cat([best_d, -d2], dim=1)
-        cat_i = torch.cat([best_i, idx.expand(nq, -1)], dim=1)
-        best_d, pos = torch.topk(cat_d, k, dim=1)
-        best_i = torch.gather(cat_i, 1, pos)
+        b = xb.shape[0]
+        cross = cross_buf if b == width else torch.empty(
+            (nq, b), dtype=q.dtype, device=dev)
+        torch.mm(q, xb.T, out=cross)  # (Q, B)
+        d2 = cat_d[:, k:k + b]
+        torch.add(q_norms, sq_norms[None, start:start + b], out=d2)
+        d2.sub_(cross, alpha=2.0)
+        mine = torch.nonzero((q_ids >= start) & (q_ids < start + b))[:, 0]
+        d2[mine, q_ids[mine] - start] = 0.0
+        d2.neg_()
+        best_d, pos = torch.topk(cat_d[:, :k + b], k, dim=1)
+        best_i = torch.where(
+            pos < k, torch.gather(best_i, 1, torch.clamp(pos, max=k - 1)),
+            pos - k + start)
+        cat_d[:, :k] = best_d
     return best_d, best_i
 
 

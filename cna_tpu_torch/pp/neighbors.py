@@ -111,6 +111,18 @@ def membership_strengths(dists, rho, sigma, indices=None):
     return torch.where(indices == rows, torch.zeros_like(w), w)
 
 
+def _strengths(dists, indices, n_neighbors):
+    """Directed strengths of kNN lists (``smooth_knn_dist`` +
+    ``membership_strengths``), computed in float64 and returned in the
+    distances' dtype.  In float32 the bisection stops at another step
+    than in float64 (its tolerance, 1e-5 on a sum near log2(k), is met at
+    a different mid), which moves the far weights of a row by up to
+    1e-4 of themselves."""
+    d64 = dists.to(torch.float64)
+    rho, sigma = smooth_knn_dist(d64, math.log2(n_neighbors))
+    return membership_strengths(d64, rho, sigma, indices).to(dists.dtype)
+
+
 def fuzzy_union_device(indices, w, chunk_rows=65_536):
     """Symmetrized fuzzy-union strengths aligned to the kNN edge list.
 
@@ -157,8 +169,7 @@ def fuzzy_connectivities(indices, dists):
     d_dev = dists if isinstance(dists, torch.Tensor) else as_tensor(dists)
     idx_dev = torch.as_tensor(indices, device=d_dev.device).to(torch.int32)
     n, k = idx_dev.shape
-    rho, sigma = smooth_knn_dist(d_dev, math.log2(k))
-    w_dev = membership_strengths(d_dev, rho, sigma, idx_dev)
+    w_dev = _strengths(d_dev, idx_dev, k)
     w_sym_dev, code_dev = fuzzy_union_device(idx_dev, w_dev)
     idx_np, w_sym, code = fetch(idx_dev), fetch(w_sym_dev), fetch(code_dev)
 
@@ -194,8 +205,7 @@ def _neighbors_device(data, rep, n_neighbors, method, resolved):
             idx_dev, d_dev = knn_device(rep, n_neighbors, resolved)
             order = np.arange(n, dtype=np.int32)
     with prof.phase("fuzzy_graph", cells=n):
-        rho, sigma = smooth_knn_dist(d_dev, math.log2(n_neighbors))
-        w = membership_strengths(d_dev, rho, sigma, idx_dev)
+        w = _strengths(d_dev, idx_dev, n_neighbors)
         w_sym, code = fuzzy_union_device(idx_dev, w)
         ell = build_sym_ell(idx_dev, w_sym, code)
         if resolved == "ivf":

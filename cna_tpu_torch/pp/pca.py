@@ -26,6 +26,10 @@ _STREAM_MIN_ELEMS = 16_000_000
 
 
 def _cov_core(x):
+    # float64 whatever x's dtype: a float32 product over 10^5 rows moves
+    # the covariance by ~1e-6 of itself, which rotates the eigenvectors
+    # of the near-equal noise eigenvalues by ~1e-4
+    x = x.to(torch.float64)
     xc = x - x.mean(dim=0, keepdim=True)
     return (xc.T @ xc) / (x.shape[0] - 1)
 
@@ -139,8 +143,10 @@ def _pca_dense_streamed(x_host, n_comps, chunk_rows=131_072):
     gram = torch.zeros((g, g), dtype=torch.float64, device=dev)
     colsum = torch.zeros((g,), dtype=torch.float64, device=dev)
     for blk in chunks:
-        gram += blk.T @ blk
-        colsum += blk.sum(dim=0)
+        # float64 products, as in _cov_core
+        blk64 = blk.to(torch.float64)
+        gram += blk64.T @ blk64
+        colsum += blk64.sum(dim=0)
     mean, evals, comps, total_var = _gram_eigh(gram, colsum, n, n_comps)
     comps_dev = torch.as_tensor(comps, dtype=dtype, device=dev)
     shift = torch.as_tensor(mean @ comps, dtype=dtype, device=dev)

@@ -111,3 +111,9 @@ def enable_profiling(trace_dir: str | None = None) -> PhaseProfiler:
     global _GLOBAL
     _GLOBAL = PhaseProfiler(enabled=True, trace_dir=trace_dir)
     return _GLOBAL
+
+
+def disable_profiling() -> None:
+    """Stop recording phases (the state before ``enable_profiling``)."""
+    global _GLOBAL
+    _GLOBAL = PhaseProfiler(enabled=False)

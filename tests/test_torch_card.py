@@ -615,3 +615,45 @@ def test_halo_step_on_the_card_matches_the_cpu(perms):
     assert all(t.device.type == "cuda" for t in got.shards.values())
     np.testing.assert_allclose(np.asarray(got)[:n], np.asarray(ref)[:n],
                                rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.gpu
+def test_card_vs_cpu_at_200_samples():
+    """``chip_smoke.card_vs_cpu`` at the north-star's width (200 samples x
+    25 cells): the card in float32 against the CPU in float64, stage by
+    stage, with chip_smoke's limits (it raises past any of them)."""
+    import chip_smoke
+
+    need_cuda()
+    try:
+        rec = chip_smoke.card_vs_cpu(ct, n_samples=200, cells_per_sample=25)
+    finally:
+        ct.config.set_device("cpu")
+        ct.config.enable_x64(True)
+    assert rec["same_graph"]["nam_rel_err"] <= chip_smoke.NAM_RTOL
+    assert rec["same_graph"]["k"][0] == rec["same_graph"]["k"][1]
+
+
+@pytest.mark.gpu
+def test_bench_torch_on_the_card_at_20k_cells():
+    """``bench_torch.bench`` at 20,000 cells on the card: bench.py's record,
+    the exact blocked search (20,000 cells is 'auto's last exact size), no
+    kernel launch, a peak memory and the card's name."""
+    import bench_torch
+
+    need_cuda()
+    ct.config.set_device("cuda")
+    ct.config.enable_x64(False)
+    try:
+        rec = bench_torch.bench(20_000, 200, 50)
+    finally:
+        ct.config.set_device("cpu")
+        ct.config.enable_x64(True)
+    assert rec["metric"] == "association_e2e_20k_cells_200perm"
+    assert rec["vs_baseline"] is None and rec["value"] > 0
+    ex = rec["extras"]
+    assert ex["knn_method_resolved"] == "exact" and ex["ref"] is None
+    assert not any(ex["kernel_launches"].values())
+    assert ex["peak_device_gb"] > 0
+    assert ex["device"]["name"] == torch.cuda.get_device_name()
+    assert all(0 < p <= 1 for p in ex["p"]) and min(ex["k"]) >= 1
