@@ -190,8 +190,7 @@ def bench(n_cells=100_000, nnull=1000, n_samples=50, keep=None):
     profiling.disable_profiling()
     assoc_phases = _phase_seconds(prof, {})
     err(f"# association: cold {cold_s:.2f}s warm {warm_s:.2f}s "
-        f"(p={res_warm.p:.4g}, k={res_warm.k})")
-    prof.report(out=lambda *a: print("#", *a, file=sys.stderr))
+        f"(p={res_warm.p:.4g}, k={res_warm.k}) phases={assoc_phases}")
 
     extras = {
         "graph_build_cold_s": graph_cold_s,

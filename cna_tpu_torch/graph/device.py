@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..utils.transfer import fetch
+from ..utils.transfer import fetch, scalar
 from .buckets import plan_buckets
 from .ell import EllGraph
 
@@ -119,7 +119,7 @@ def _mirror_sort(idx, w_sym, code):
     mir = (code & 2) > 0
     tgt = torch.where(mir, idx, torch.full_like(idx, n)).reshape(-1)
     tgt_s, perm = torch.sort(tgt, stable=True)
-    m = int(mir.sum())  # scalar pull
+    m = int(scalar(mir.sum()))
     perm = perm[:m]
     src_s = (perm // k).to(torch.int32)
     w_s = w_sym.reshape(-1)[perm]

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils.transfer import fetch
 from .reorder import Reordering
 
 
@@ -67,7 +68,7 @@ def embedding_clusters(embedding, n_clusters, kmeans_iters=8,
     x_all = (torch.nn.functional.pad(x, (0, 0, 0, n_pad_all - n))
              if n_pad_all > n else x)
     cid = _assign_chunked(x_all, cent, chunk)[:n]
-    return cid.cpu().numpy().astype(np.int64)
+    return fetch(cid).astype(np.int64)
 
 
 def partition_clusters(n, n_shards, cluster_cells=64, max_clusters=4096):

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.transfer import scalar
 from . import moments
 
 _BETAINC_MAX_ITER = 1000
@@ -72,7 +73,7 @@ def betainc(a, b, x):
         delta = d * c
         h = h * delta
         if m % 8 == 0 and not bool(
-                ((delta - 1.0).abs() > _BETAINC_EPS).any()):
+                scalar(((delta - 1.0).abs() > _BETAINC_EPS).any())):
             break
     val = front * h
     return torch.where(swap, 1.0 - val, val)

@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.transfer import fetch
+
 
 def _encode_groups(values):
     """Host-side: map group labels to [0, G) ids in np.unique (sorted) order."""
@@ -66,7 +68,7 @@ def grouplevel_permutation(generator, groups, y, num):
     Requires ``y`` constant within each group (reference ``_stats.py:28-30``
     prints an error and returns None; this raises, which is safer).
     """
-    y_host = y.detach().cpu().numpy()
+    y_host = fetch(y)
     uniq, ids = _encode_groups(groups)
     ng = len(uniq)
     first = np.full(ng, -1, dtype=np.int64)

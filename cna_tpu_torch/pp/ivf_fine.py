@@ -536,7 +536,7 @@ def ivf_knn_fine(points, k, seed=0, min_recall=0.9, recall_sample=512,
         truth_cal, truth_ver = true_idx[:half], true_idx[half:]
 
         while True:
-            with prof.phase(f"ivf_pilot(u={u})"):
+            with prof.phase("ivf_pilot", u=u):
                 batches = _score_slots(index, u, ps_ids, k, probe_cache,
                                        devices)
                 got_c = _pull_sample_rows(batches, ps_ids, index, cal_q, k)
@@ -572,7 +572,7 @@ def ivf_knn_fine(points, k, seed=0, min_recall=0.9, recall_sample=512,
                                       device=x_dev.device)
     prev_rec = -1.0
     while True:
-        with prof.phase(f"ivf_search(u={u})", cells=n):
+        with prof.phase("ivf_search", cells=n, u=u):
             batches = _score_slots(index, u, np.arange(s), k, probe_cache,
                                    devices)
             negd_flat = _cat([b[0] for b in batches]).reshape(-1, k)

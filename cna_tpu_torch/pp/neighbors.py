@@ -264,42 +264,43 @@ def neighbors(data, n_neighbors=15, n_pcs=None, use_rep=None, key_added=None,
     """
     from .pca import device_rep, pca
 
-    if use_rep is None:
-        if "X_pca" not in data.obsm:
-            pca(data, n_comps=min(50, data.n_vars))
-        rep = data.obsm["X_pca"]
-    else:
-        rep = data.obsm[use_rep]
-    rep = device_rep(data, rep)  # skip the host round trip after pp.pca
-    rep = rep if isinstance(rep, torch.Tensor) else as_tensor(rep)
-    if n_pcs is not None:
-        rep = rep[:, :n_pcs]
-
-    resolved = resolve_method(data.n_obs, method, rep.device)
-    if resolved == "ivf" or rep.device.type == "cuda":
-        return _neighbors_device(data, rep, n_neighbors, method, resolved)
-
     prof = global_profiler()
-    with prof.phase("knn", cells=data.n_obs):
-        idx_dev, d_dev = knn_device(rep, n_neighbors, resolved)
-        # pull both (N, k) arrays exactly once, for the distances CSR
-        indices, dists = fetch(idx_dev), fetch(d_dev)
+    with prof.phase("neighbors"):
+        if use_rep is None:
+            if "X_pca" not in data.obsm:
+                pca(data, n_comps=min(50, data.n_vars))
+            rep = data.obsm["X_pca"]
+        else:
+            rep = data.obsm[use_rep]
+        rep = device_rep(data, rep)  # skip the host round trip after pp.pca
+        rep = rep if isinstance(rep, torch.Tensor) else as_tensor(rep)
+        if n_pcs is not None:
+            rep = rep[:, :n_pcs]
 
-    n = data.n_obs
-    with prof.phase("fuzzy_graph", cells=n):
-        # rows are already grouped: build the CSR directly from the kNN
-        # layout (indptr is arithmetic) instead of a COO coalesce sort
-        kk = n_neighbors - 1
-        indptr = np.arange(0, n * kk + 1, kk, dtype=np.int64)
-        dist_mat = sp.csr_matrix(
-            (dists[:, 1:].ravel().copy(),
-             indices[:, 1:].ravel().astype(np.int32), indptr),
-            shape=(n, n))
-        dist_mat.sort_indices()
+        resolved = resolve_method(data.n_obs, method, rep.device)
+        if resolved == "ivf" or rep.device.type == "cuda":
+            return _neighbors_device(data, rep, n_neighbors, method, resolved)
 
-        conn = fuzzy_connectivities(idx_dev, d_dev)
+        with prof.phase("knn", cells=data.n_obs):
+            idx_dev, d_dev = knn_device(rep, n_neighbors, resolved)
+            # pull both (N, k) arrays exactly once, for the distances CSR
+            indices, dists = fetch(idx_dev), fetch(d_dev)
 
-    data.obsp["distances"] = dist_mat
-    data.obsp["connectivities"] = conn
-    data.uns["neighbors"] = _neighbors_meta(n_neighbors, method, resolved)
-    return conn
+        n = data.n_obs
+        with prof.phase("fuzzy_graph", cells=n):
+            # rows are already grouped: build the CSR directly from the kNN
+            # layout (indptr is arithmetic) instead of a COO coalesce sort
+            kk = n_neighbors - 1
+            indptr = np.arange(0, n * kk + 1, kk, dtype=np.int64)
+            dist_mat = sp.csr_matrix(
+                (dists[:, 1:].ravel().copy(),
+                 indices[:, 1:].ravel().astype(np.int32), indptr),
+                shape=(n, n))
+            dist_mat.sort_indices()
+
+            conn = fuzzy_connectivities(idx_dev, d_dev)
+
+        data.obsp["distances"] = dist_mat
+        data.obsp["connectivities"] = conn
+        data.uns["neighbors"] = _neighbors_meta(n_neighbors, method, resolved)
+        return conn

@@ -180,25 +180,28 @@ def pca(data, n_comps=50, key_added="X_pca"):
 
     n, g = data.X.shape
     n_comps = min(n_comps, g, n)
-    with global_profiler().phase("pca_compute", cells=int(n)):
-        if sp.issparse(data.X):
-            scores_dev, variance, components, total_var = _pca_sparse(
-                data.X, n_comps)
-        elif n * g >= _STREAM_MIN_ELEMS:
-            scores_dev, variance, components, total_var = \
-                _pca_dense_streamed(np.asarray(data.X), n_comps)
-        else:
-            x = as_tensor(data.X)
-            scores_dev, variance, components, total_var = _pca_device(
-                x, n_comps)
-        scores = fetch(scores_dev)
-    data.obsm[key_added] = scores
-    data.uns[_PCA_DEV_KEY] = (scores, scores_dev, _rep_fingerprint(scores))
-    data.uns["pca"] = {
-        "variance": variance,
-        "variance_ratio": variance / total_var,
-        "components": components,
-    }
+    prof = global_profiler()
+    with prof.phase("pca"):
+        with prof.phase("pca_compute", cells=int(n)):
+            if sp.issparse(data.X):
+                scores_dev, variance, components, total_var = _pca_sparse(
+                    data.X, n_comps)
+            elif n * g >= _STREAM_MIN_ELEMS:
+                scores_dev, variance, components, total_var = \
+                    _pca_dense_streamed(np.asarray(data.X), n_comps)
+            else:
+                x = as_tensor(data.X)
+                scores_dev, variance, components, total_var = _pca_device(
+                    x, n_comps)
+            scores = fetch(scores_dev)
+        data.obsm[key_added] = scores
+        data.uns[_PCA_DEV_KEY] = (scores, scores_dev,
+                                  _rep_fingerprint(scores))
+        data.uns["pca"] = {
+            "variance": variance,
+            "variance_ratio": variance / total_var,
+            "components": components,
+        }
     return scores
 
 

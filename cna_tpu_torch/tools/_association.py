@@ -33,7 +33,7 @@ from ..ops import ftest, moments, permutations
 from ..parallel import dist, sharded
 from ..utils import checks
 from ..utils.profiling import global_profiler
-from ..utils.transfer import as_tensor, fetch, fetch_many
+from ..utils.transfer import as_tensor, fetch, fetch_many, scalar
 from ._nam import NamArrays, _resid_nam, nam, nam_arrays
 from ._out import select_output
 
@@ -139,137 +139,146 @@ def _association(NAMsvd, NAMresid, M, r, y, batches, donorids, ks=None,
         )
     ks_dev = torch.as_tensor(ks, dtype=torch.int64, device=dev)
 
-    # observed stage
-    (k_dev, p_dev, r2_dev, ycond, yhat, beta_full, r2_perpc_full,
-     ncorrs_dev, maxcorr_dev) = _assoc_observed(u, m_proj, namresid, y,
-                                                ks_dev, r)
+    prof = global_profiler()
+    with prof.phase("observed"):
+        (k_dev, p_dev, r2_dev, ycond, yhat, beta_full, r2_perpc_full,
+         ncorrs_dev, maxcorr_dev) = _assoc_observed(u, m_proj, namresid, y,
+                                                    ks_dev, r)
 
     # permutation null (reference ``:80-84``)
-    ystd = (y - y.mean()) / y.std(correction=0)
-    if null_y is not None:
-        y_ = torch.as_tensor(np.array(null_y), dtype=dtype, device=dev)
-        if tuple(y_.shape) != (n, Nnull):
-            raise ValueError(
-                f"null_y must have shape {(n, Nnull)}, got {tuple(y_.shape)}")
-    else:
-        if seed is None:
-            seed = int(np.random.randint(0, 2**31 - 1))
-            if mesh is not None:
-                # every process must draw the same nulls
-                seed = dist.broadcast_object(mesh, seed)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        if donorids is not None:
-            y_ = permutations.grouplevel_permutation(gen, donorids, ystd,
-                                                     Nnull)
+    with prof.phase("null"):
+        ystd = (y - y.mean()) / y.std(correction=0)
+        if null_y is not None:
+            y_ = torch.as_tensor(np.array(null_y), dtype=dtype, device=dev)
+            if tuple(y_.shape) != (n, Nnull):
+                raise ValueError(f"null_y must have shape {(n, Nnull)}, "
+                                 f"got {tuple(y_.shape)}")
         else:
-            y_ = permutations.conditional_permutation(gen, batches, ystd,
-                                                      Nnull)
+            if seed is None:
+                seed = int(np.random.randint(0, 2**31 - 1))
+                if mesh is not None:
+                    # every process must draw the same nulls
+                    seed = dist.broadcast_object(mesh, seed)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed))
+            if donorids is not None:
+                y_ = permutations.grouplevel_permutation(gen, donorids, ystd,
+                                                         Nnull)
+            else:
+                y_ = permutations.conditional_permutation(gen, batches, ystd,
+                                                          Nnull)
 
-    n_local = min(1000, Nnull)
-    if mesh is None:
-        nullminps_dev, nullr2s_dev, ycond_null = _assoc_null(
-            u, m_proj, y_, ks_dev, r, n_local, bool(local_test))
-    else:
-        _, nullminps_dev, nullr2s_dev = sharded.null_minp(
-            u, m_proj, y_, ks_dev, r, mesh)
+        n_local = min(1000, Nnull)
+        if mesh is None:
+            nullminps_dev, nullr2s_dev, ycond_null = _assoc_null(
+                u, m_proj, y_, ks_dev, r, n_local, bool(local_test))
+        else:
+            _, nullminps_dev, nullr2s_dev = sharded.null_minp(
+                u, m_proj, y_, ks_dev, r, mesh)
 
     fdr_dev, fdr_thresholds = None, None
     if local_test:
-        out("computing neighborhood-level FDRs")
-        # threshold grid (reference ``:101-102``): float() yields a
-        # float64 arange, which the empirical-FDR code detects as exactly
-        # uniform (its collapsed-histogram fast path)
-        maxcorr = float(maxcorr_dev)
-        fdr_thresholds = np.arange(maxcorr / 4, maxcorr, maxcorr / 400)
-        n_cells = namresid.shape[1]
-        if n_cells * n_local > _FUSED_FDR_MIN_ELEMENTS:
-            # big problems: fuse HOT LOOP 3's matmul with the tail-count
-            # histogram, O(block x Nnull) memory instead of the
-            # (cells x Nnull) null-coefficient matrix
-            t0, dt = float(fdr_thresholds[0]), float(
-                fdr_thresholds[1] - fdr_thresholds[0])
-            nb = len(fdr_thresholds)
-            if mesh is not None:
-                # every (cells, perms) slot fuses its own tile
-                tails = fdr_ops.null_coef_tail_counts_mesh(
-                    namresid, _null_ycond(m_proj, y_, n_local), n, t0, dt,
-                    nb, mesh)
+        with prof.phase("fdr"):
+            out("computing neighborhood-level FDRs")
+            # threshold grid (reference ``:101-102``): a Python float
+            # yields a float64 arange, which the empirical-FDR code
+            # detects as exactly uniform (its collapsed-histogram fast
+            # path)
+            maxcorr = scalar(maxcorr_dev)
+            fdr_thresholds = np.arange(maxcorr / 4, maxcorr, maxcorr / 400)
+            n_cells = namresid.shape[1]
+            if n_cells * n_local > _FUSED_FDR_MIN_ELEMENTS:
+                # big problems: fuse HOT LOOP 3's matmul with the
+                # tail-count histogram, O(block x Nnull) memory instead
+                # of the (cells x Nnull) null-coefficient matrix
+                t0, dt = float(fdr_thresholds[0]), float(
+                    fdr_thresholds[1] - fdr_thresholds[0])
+                nb = len(fdr_thresholds)
+                if mesh is not None:
+                    # every (cells, perms) slot fuses its own tile
+                    tails = fdr_ops.null_coef_tail_counts_mesh(
+                        namresid, _null_ycond(m_proj, y_, n_local), n, t0,
+                        dt, nb, mesh)
+                else:
+                    tails = fdr_ops.null_coef_tail_counts(
+                        namresid, ycond_null, n, t0, dt, nb)
+                ranks = fdr_ops._tail_hist_uniform(
+                    ncorrs_dev, t0, dt, nb, 1e-8, 1e-5)
+                fdr_dev = ("fused", tails, ranks)
             else:
-                tails = fdr_ops.null_coef_tail_counts(
-                    namresid, ycond_null, n, t0, dt, nb)
-            ranks = fdr_ops._tail_hist_uniform(
-                ncorrs_dev, t0, dt, nb, 1e-8, 1e-5)
-            fdr_dev = ("fused", tails, ranks)
-        else:
-            nullncorrs = (
-                _null_ncorrs(namresid, ycond_null) if mesh is None else
-                sharded.null_ncorrs(namresid, m_proj, y_[:, :n_local], mesh))
-            fdr_dev = ("dense", fdr_ops.empirical_fdrs(
-                ncorrs_dev, nullncorrs, fdr_thresholds), None)
+                nullncorrs = (
+                    _null_ncorrs(namresid, ycond_null) if mesh is None else
+                    sharded.null_ncorrs(namresid, m_proj, y_[:, :n_local],
+                                        mesh))
+                fdr_dev = ("dense", fdr_ops.empirical_fdrs(
+                    ncorrs_dev, nullncorrs, fdr_thresholds), None)
 
-    (k_h, p_h, r2_h, ncorrs, nullminps, nullr2s, yhat_h, ycond_h,
-     beta_h, r2pc_h) = fetch_many(
-        k_dev, p_dev, r2_dev, ncorrs_dev, nullminps_dev, nullr2s_dev,
-        yhat, ycond, beta_full, r2_perpc_full)
-    k, p, r2 = int(k_h), float(p_h), float(r2_h)
+    with prof.phase("collect"):
+        (k_h, p_h, r2_h, ncorrs, nullminps, nullr2s, yhat_h, ycond_h,
+         beta_h, r2pc_h) = fetch_many(
+            k_dev, p_dev, r2_dev, ncorrs_dev, nullminps_dev, nullr2s_dev,
+            yhat, ycond, beta_full, r2_perpc_full)
+        k, p, r2 = int(k_h), float(p_h), float(r2_h)
 
-    # post-conditions: a NaN/Inf in any of these is always a pipeline bug
-    # or degenerate input; fail here rather than write poison into obs
-    checks.assert_finite(minp=p_h, r2=r2_h, ncorrs=ncorrs,
-                         nullminps=nullminps, nullr2s=nullr2s)
+        # post-conditions: a NaN/Inf in any of these is always a pipeline
+        # bug or degenerate input; fail here rather than write poison into
+        # obs
+        checks.assert_finite(minp=p_h, r2=r2_h, ncorrs=ncorrs,
+                             nullminps=nullminps, nullr2s=nullr2s)
 
-    if k == max(ks):
-        warnings.warn(
-            f"data supported use of {k} NAM PCs, which is the maximum "
-            "considered. Consider allowing more PCs via the ks argument."
+        if k == max(ks):
+            warnings.warn(
+                f"data supported use of {k} NAM PCs, which is the maximum "
+                "considered. Consider allowing more PCs via the ks "
+                "argument."
+            )
+
+        pfinal = ((nullminps <= p + 1e-8).sum() + 1) / (Nnull + 1)
+        if (nullminps <= p + 1e-8).sum() == 0:
+            warnings.warn(
+                "global association p-value attained the minimal possible "
+                "value; consider increasing Nnull"
+            )
+
+        # local neighborhood-level test (reference ``:91-118``)
+        fdrs, fdr_5p_t, fdr_10p_t = None, None, None
+        if local_test:
+            abs_ncorrs = np.abs(ncorrs)
+            if fdr_dev[0] == "fused":
+                fdr_vals = fetch(fdr_dev[1]) / (n_local
+                                                * fetch(fdr_dev[2]))
+            else:
+                fdr_vals = fetch(fdr_dev[1])
+
+            # num_detected[t] = #{|ncorr| > t} (reference ``:105-108``), as
+            # one sort + searchsorted instead of a 400-threshold host loop
+            sorted_abs = np.sort(abs_ncorrs)
+            num_detected = sorted_abs.size - np.searchsorted(
+                sorted_abs, fdr_thresholds, side="right")
+            fdrs = pd.DataFrame({
+                "threshold": fdr_thresholds,
+                "fdr": fdr_vals,
+                "num_detected": num_detected,
+            })
+
+            # maximal FDR<5% / FDR<10% sets (reference ``:110-118``)
+            if np.min(fdrs.fdr) > 0.05:
+                fdr_5p_t = None
+            else:
+                fdr_5p_t = fdrs[fdrs.fdr <= 0.05].iloc[0].threshold
+            if np.min(fdrs.fdr) > 0.1:
+                fdr_10p_t = None
+            else:
+                fdr_10p_t = fdrs[fdrs.fdr <= 0.1].iloc[0].threshold
+
+        return Result(
+            p=pfinal, nullminps=nullminps, k=k, ncorrs=ncorrs,
+            fdrs=fdrs, fdr_5p_t=fdr_5p_t, fdr_10p_t=fdr_10p_t,
+            yresid_hat=yhat_h, yresid=ycond_h, ks=ks,
+            beta=beta_h[:k], r2=r2,
+            r2_perpc=r2pc_h[:k],
+            nullr2_mean=nullr2s.mean(), nullr2_std=nullr2s.std(),
         )
-
-    pfinal = ((nullminps <= p + 1e-8).sum() + 1) / (Nnull + 1)
-    if (nullminps <= p + 1e-8).sum() == 0:
-        warnings.warn(
-            "global association p-value attained the minimal possible "
-            "value; consider increasing Nnull"
-        )
-
-    # local neighborhood-level test (reference ``:91-118``)
-    fdrs, fdr_5p_t, fdr_10p_t = None, None, None
-    if local_test:
-        abs_ncorrs = np.abs(ncorrs)
-        if fdr_dev[0] == "fused":
-            fdr_vals = fetch(fdr_dev[1]) / (n_local * fetch(fdr_dev[2]))
-        else:
-            fdr_vals = fetch(fdr_dev[1])
-
-        # num_detected[t] = #{|ncorr| > t} (reference ``:105-108``), as one
-        # sort + searchsorted instead of a 400-threshold host loop
-        sorted_abs = np.sort(abs_ncorrs)
-        num_detected = sorted_abs.size - np.searchsorted(
-            sorted_abs, fdr_thresholds, side="right")
-        fdrs = pd.DataFrame({
-            "threshold": fdr_thresholds,
-            "fdr": fdr_vals,
-            "num_detected": num_detected,
-        })
-
-        # maximal FDR<5% / FDR<10% sets (reference ``:110-118``)
-        if np.min(fdrs.fdr) > 0.05:
-            fdr_5p_t = None
-        else:
-            fdr_5p_t = fdrs[fdrs.fdr <= 0.05].iloc[0].threshold
-        if np.min(fdrs.fdr) > 0.1:
-            fdr_10p_t = None
-        else:
-            fdr_10p_t = fdrs[fdrs.fdr <= 0.1].iloc[0].threshold
-
-    return Result(
-        p=pfinal, nullminps=nullminps, k=k, ncorrs=ncorrs,
-        fdrs=fdrs, fdr_5p_t=fdr_5p_t, fdr_10p_t=fdr_10p_t,
-        yresid_hat=yhat_h, yresid=ycond_h, ks=ks,
-        beta=beta_h[:k], r2=r2,
-        r2_perpc=r2pc_h[:k],
-        nullr2_mean=nullr2s.mean(), nullr2_std=nullr2s.std(),
-    )
 
 
 def check_inputs(data, y, sid_name, batches, covs, donorids,
@@ -420,42 +429,55 @@ def association(data, y, sid_name, batches=None, covs=None, donorids=None,
     out = select_output(show_progress)
 
     prof = global_profiler()
-    batches, filter_samples = check_inputs(
-        data, y, sid_name, batches, covs, donorids, allow_low_sample_size)
+    with prof.phase("association"):
+        with prof.phase("check_inputs"):
+            batches, filter_samples = check_inputs(
+                data, y, sid_name, batches, covs, donorids,
+                allow_low_sample_size)
 
-    with prof.phase("nam", cells=data.n_obs):
-        NAM, kept, batches, covs, donorids, filter_samples = (
-            _compute_nam_arrays_and_reindex(
-                data, y, sid_name, batches, covs, donorids, filter_samples,
-                nsteps, show_progress, mesh=mesh,
-                nam_savepoint=nam_savepoint, **kwargs))
+        with prof.phase("nam", cells=data.n_obs):
+            NAM, kept, batches, covs, donorids, filter_samples = (
+                _compute_nam_arrays_and_reindex(
+                    data, y, sid_name, batches, covs, donorids,
+                    filter_samples, nsteps, show_progress, mesh=mesh,
+                    nam_savepoint=nam_savepoint, **kwargs))
 
-    n_valid = filter_samples.sum()
-    npcs = min(
-        n_valid,
-        max([10, int(max_frac_pcs * n_valid)] + (list(ks) if ks is not None else [])),
-    )
-    with prof.phase("residualize"):
-        res = _resid_nam(
-            NAM,
-            covs[filter_samples] if covs is not None else covs,
-            batches[filter_samples] if batches is not None else batches,
-            npcs=npcs, ridges=ridges, show_progress=show_progress)
+        n_valid = filter_samples.sum()
+        npcs = min(n_valid, max([10, int(max_frac_pcs * n_valid)]
+                                + (list(ks) if ks is not None else [])))
+        with prof.phase("residualize"):
+            res = _resid_nam(
+                NAM,
+                covs[filter_samples] if covs is not None else covs,
+                batches[filter_samples] if batches is not None else batches,
+                npcs=npcs, ridges=ridges, show_progress=show_progress)
 
-    out("performing association test")
-    dev = res._dev
-    with prof.phase("test", permutations=kwargs.get("Nnull", 1000)):
-        res_ = _association(
-            (dev.u, dev.svs, dev.v),
-            dev.namresid, dev.m, dev.r,
-            y[filter_samples].values, batches[filter_samples].values,
-            donorids[filter_samples].values if donorids is not None else None,
-            show_progress=show_progress, ks=ks, mesh=mesh, **kwargs)
-    res.update(res_)
-    res.set_lazy("nam", NAM.to_df)
-    res.kept = kept
+        out("performing association test")
+        dev = res._dev
+        with prof.phase("test", permutations=kwargs.get("Nnull", 1000)):
+            res_ = _association(
+                (dev.u, dev.svs, dev.v),
+                dev.namresid, dev.m, dev.r,
+                y[filter_samples].values, batches[filter_samples].values,
+                (donorids[filter_samples].values if donorids is not None
+                 else None),
+                show_progress=show_progress, ks=ks, mesh=mesh, **kwargs)
+        res.update(res_)
+        res.set_lazy("nam", NAM.to_df)
+        res.kept = kept
 
-    # per-cell write-back (reference ``:228-237``)
+        with prof.phase("writeback"):
+            _write_back(data, res, kept, key_added)
+
+    if return_full:
+        return res
+    return res.p
+
+
+def _write_back(data, res, kept, key_added):
+    """Per-cell write-back (reference ``:228-237``): the neighborhood
+    coefficients into ``data.obs[key_added]`` and the FDRs into
+    ``data.obs[f'{key_added}_fdr']``."""
     if key_added in data.obs:
         warnings.warn(
             f"data.obs already has a column named '{key_added}'; its "
@@ -477,7 +499,3 @@ def association(data, y, sid_name, batches=None, covs=None, donorids=None,
                            prefix_min_fdr[np.maximum(pos - 1, 0)], 1.0)
         fdr_col = np.where(np.isnan(coefs), 1.0, fdr_col)
         data.obs[f"{key_added}_fdr"] = fdr_col
-
-    if return_full:
-        return res
-    return res.p

@@ -12,7 +12,7 @@ TPU package's ``tools/_nam.py``:
   (``_nam.py:118-177``).
 
 The data-dependent loops (the diffusion stop and the ridge-sweep early
-exit) are host loops with one scalar ``.item()`` per step; the per-step
+exit) are host loops with one scalar read per step; the per-step
 diagnostic trails (kurtosis, R²) stay in device buffers and are printed
 afterwards.  Only shape-changing decisions (QC column drops) sync a
 small mask to the host.
@@ -45,7 +45,7 @@ from ..graph.device import DeviceConnectivities
 from ..graph.ell import EllGraph, from_scipy
 from ..ops import linalg, moments, spmm
 from ..utils.profiling import global_profiler
-from ..utils.transfer import as_tensor, fetch, to_device
+from ..utils.transfer import as_tensor, fetch, scalar, to_device
 from ._out import select_output
 
 _ELL_CACHE_KEY = "_cna_tpu_torch_ell_graph"
@@ -271,31 +271,35 @@ def _adaptive_loop(s0, step, stats, maxnsteps, nsteps):
     are (maxnsteps,) device buffers whose entries past ``steps_taken``
     hold an inf sentinel.
     """
+    prof = global_profiler()
     opts = dict(dtype=s0.dtype, device=s0.device)
     mk_buf = torch.full((maxnsteps,), torch.inf, **opts)
     r2_buf = torch.full((maxnsteps,), torch.inf, **opts)
     s, old_s = s0, None
     prevmedkurt = torch.tensor(torch.inf, **opts)
     i = 0
-    while i < maxnsteps:
-        s_new = step(s)
-        medkurt, r2 = stats(s_new, old_s)
-        # +inf marks zero-variance columns; numpy's percentile would be
-        # NaN if any column were NaN, so propagate the sentinel the same way
-        inf_r2 = torch.isinf(r2)
-        r2p20 = torch.where(
-            inf_r2.any(), torch.inf,
-            moments.quantile(torch.where(inf_r2, 2.0, r2), 0.2))
-        mk_buf[i] = medkurt
-        r2_buf[i] = r2p20
-        i += 1
-        if nsteps is None:
-            done = i >= 3 and bool((prevmedkurt - medkurt < 3).item())
-        else:
-            done = i >= nsteps
-        s, old_s, prevmedkurt = s_new, s_new, medkurt
-        if done:
-            break
+    with prof.phase("diffusion"):
+        while i < maxnsteps:
+            s_new = step(s)
+            medkurt, r2 = stats(s_new, old_s)
+            # +inf marks zero-variance columns; numpy's percentile would be
+            # NaN if any column were NaN, so propagate the sentinel the
+            # same way
+            inf_r2 = torch.isinf(r2)
+            r2p20 = torch.where(
+                inf_r2.any(), torch.inf,
+                moments.quantile(torch.where(inf_r2, 2.0, r2), 0.2))
+            mk_buf[i] = medkurt
+            r2_buf[i] = r2p20
+            i += 1
+            if nsteps is None:
+                done = i >= 3 and bool(scalar(prevmedkurt - medkurt < 3))
+            else:
+                done = i >= nsteps
+            s, old_s, prevmedkurt = s_new, s_new, medkurt
+            if done:
+                break
+        prof.count("steps", i)
     return s, i, mk_buf, r2_buf
 
 
@@ -698,7 +702,7 @@ def _ridge_sweep(nam_c, c, ridges, batch_ids, n_batch_cols, num_batches):
         medk = moments.median(kurt)
         medk_buf[i] = medk
         i += 1
-        if bool((medk <= 6).item()):
+        if bool(scalar(medk <= 6)):
             break
     return nam_r, m_proj, i, medk_buf
 

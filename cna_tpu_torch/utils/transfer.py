@@ -3,7 +3,10 @@
 ``fetch`` is the single-device counterpart of the TPU package's
 ``parallel/dist.py:29-42`` (which also gathers arrays sharded over
 processes; the port has no multi-process path yet): every host pull in
-the pipeline goes through it.  ``as_tensor`` is the counterpart of
+the pipeline goes through it, or through ``scalar`` for one number.
+Each tensor pulled adds one to the ``host_reads`` counter of the open
+``utils.profiling`` span, on every device: on a card each read waits
+for the queue to drain.  ``as_tensor`` is the counterpart of
 ``jnp.asarray`` under the dtype policy of ``config``.
 """
 
@@ -13,13 +16,24 @@ import numpy as np
 import torch
 
 from .. import config
+from . import profiling
 
 
 def fetch(x) -> np.ndarray:
     """``x`` (tensor, array or scalar) as a host numpy array."""
     if isinstance(x, torch.Tensor):
+        profiling.count("host_reads")
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def scalar(x):
+    """``x`` (a one-element tensor, or a host number) as a Python
+    number."""
+    if isinstance(x, torch.Tensor):
+        profiling.count("host_reads")
+        return x.item()
+    return x
 
 
 def fetch_many(*xs):

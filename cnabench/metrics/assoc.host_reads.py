@@ -1,0 +1,9 @@
+"""assoc.host_reads: tensors pulled to the host per association
+(`host_reads`, counted by the program's `utils.transfer` in every span):
+on a card each read waits for the queue to drain."""
+
+from cnabench import counters
+
+
+def read(run):
+    return counters.per_job(run, "association", "host_reads")

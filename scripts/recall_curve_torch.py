@@ -118,10 +118,11 @@ def main(argv=None):
         got = fetch(r.indices[torch.as_tensor(inv[q_ix], device=dev)])
         rec = _recall_against(r.order[got], truth, k)
         phases = {p["phase"]: p["seconds"] for p in prof.phases}
+        searches = [p for p in prof.phases if p["phase"] == "ivf_search"]
         pt = {"u": int(r.u), "coverage": r.u * r.index.g / n,
               "total_s": dt, "recall": rec,
-              "search_s": sum(s for name, s in phases.items()
-                              if name.startswith("ivf_search")),
+              "search_s": sum(p["seconds"] for p in searches),
+              "search_u": [p["u"] for p in searches],
               "kmeans_s": phases.get("ivf_kmeans"),
               "layout_s": phases.get("ivf_layout"),
               "launches": launches}

@@ -1,6 +1,7 @@
 """cna_tpu_torch's package boundary: what it imports, its namespace, its
 device policy and the paths that are not ported yet."""
 
+import json
 import os
 import re
 import shutil
@@ -139,14 +140,22 @@ def test_profiler_phases_and_trace(tmp_path):
 
     prof = profiling.PhaseProfiler(enabled=True, trace_dir=str(tmp_path))
     with prof.trace():
-        with prof.phase("matmul", cells=100):
-            torch.randn(64, 64) @ torch.randn(64, 64)
-    (rec,) = prof.phases
-    assert rec["phase"] == "matmul" and rec["cells_per_s"] > 0
-    assert (tmp_path / "trace.json").stat().st_size > 0
-    lines = []
-    prof.report(out=lines.append)
-    assert lines[-1].split()[0] == "TOTAL"
+        with prof.phase("job"):
+            with prof.phase("matmul", cells=100):
+                torch.randn(64, 64) @ torch.randn(64, 64)
+                prof.count("host_reads", 2)
+    inner, outer = prof.phases
+    assert inner["phase"] == "matmul" and inner["cells"] == 100
+    assert inner["host_reads"] == 2 and "host_reads" not in outer
+    assert outer["phase"] == "job" and outer["parent"] is None
+    assert inner["parent"] == outer["id"] != inner["id"]
+    assert inner["root"] == outer["root"] == outer["id"]
+    assert 0 < inner["host_seconds"] <= outer["host_seconds"]
+    assert inner["seconds"] > 0 and outer["seconds"] > 0
+    assert not any(key.endswith("_per_s") for key in inner)
+    assert not hasattr(prof, "report")
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert {"job", "matmul"} <= {e.get("name") for e in events}
 
 
 def _demo():
