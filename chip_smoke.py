@@ -23,7 +23,11 @@ Phases, each of which must pass (any failure exits non-zero):
    ``pp.pca`` (chunked) -> ``pp.neighbors`` (auto -> the IVF index and its
    scoring kernel -> the device-resident graph) -> ``tl.association`` with
    1,000 permutations; then the scoring kernel against its plain version
-   on that index's own layout and calibrated probe count;
+   on that index's own layout and calibrated probe count, and the k-means
+   assignment kernel at that build's shapes (its 524,288 sampled rows
+   against 10,416 initial centroids) held to float64 and to its plain
+   version, timed beside its bound, the plain version and the step it
+   replaced;
 6. IVF against exact at 100,000 cells: the data of phase 4 through
    ``method='ivf'``, held to phase 4's exact-graph result;
 7. card vs CPU: the same chain at 5,000 cells on cuda in float32 and on
@@ -139,6 +143,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# the dense bf16/fp16 peak that cnabench/peaks.json charges every kernel's
+# roofline with, whatever type it computes in
+PEAK_DENSE_FLOPS = 989e12
 # MMA passes the scoring kernel spends on a distance tile (1: operands
 # centred on the query block's centroid, one TF32 product; 3 would be the
 # hi/lo split)
@@ -174,6 +181,21 @@ DIST_ATOL = 1e-3  # float32 squared distances summed in different orders
 # (q - x)^2; the plain versions go through a square root): holds at any
 # scale of the data, where DIST_ATOL is blind below 1e-3
 RANK_RTOL = 1e-4
+# the k-means assignment at the 1M IVF build's shapes: its 524,288 sampled
+# rows (seed 0) against the initial 10,416 centroids (n // 96), d = 20
+KMEANS_SAMPLE = 524_288
+KMEANS_ROWS_PER_CLUSTER = 96
+KMEANS_CHUNK = 32_768  # the plain version's and the yardstick's row chunk
+# the plain version picks by |c|^2 - 2 q.c in float32, each side within
+# about (d + 2) 2^-24 (|q|^2 + 2 |c|^2) of its value, so two centroids it
+# cannot tell apart lie within twice that of each other in float64: a row
+# where kernel and plain differ must hold |D(a) - D(p)| <= KMEANS_TIE_ULPS
+# (d + 2) 2^-24 (|q|^2 + |c_a|^2 + |c_p|^2)
+KMEANS_TIE_ULPS = 4.0
+# the exact path's float32 sum of d squares is within (d + 4) 2^-24 of its
+# float64 value, relatively (csrc/dist_tile.cuh, item 6); the kernel's pick
+# must lie within twice that of the float64 nearest centroid
+KMEANS_EXACT_ULPS = 2.0
 # the scoring kernel at the 1M-cell index is held to its plain version on
 # every IVF_SHARE-th slot (the plain version's direct-difference distance
 # tiles take minutes over all slots); the kernel alone is also timed over
@@ -776,6 +798,131 @@ def check_ivf_main_shape(scores_dev, u, k):
         exact_share=n_exact / max(n_pairs, 1),
         **ivf_bound(index.x4, sel_all, table, index.blk_counts_dev, k,
                     index.g, index.q_blocks))
+    return rec
+
+
+def kmeans_library_step(x, cent, chunk=KMEANS_CHUNK):
+    """The yardstick: the plain step the kernel replaced, the (chunk, C)
+    distance tile, its argmin, the one-hot and ``oh.T @ x`` (never called
+    by the package)."""
+    import torch
+
+    c = cent.shape[0]
+    iot = torch.arange(c, device=x.device)[None, :]
+    cn = torch.sum(cent * cent, dim=1)[None, :]
+    sums = torch.zeros_like(cent)
+    cnts = torch.zeros(c, dtype=x.dtype, device=x.device)
+    for lo in range(0, x.shape[0], chunk):
+        xb = x[lo:lo + chunk]
+        oh = (torch.argmin(cn - 2.0 * (xb @ cent.T), dim=1)[:, None]
+              == iot).to(x.dtype)
+        sums = sums + oh.T @ xb
+        cnts = cnts + oh.sum(dim=0)
+    return sums, cnts
+
+
+def kmeans_held(x, cent, ids, dist, plain_ids, what, block=8192):
+    """kmeans_assign's output against float64 and its plain version:
+    every pick within ``KMEANS_EXACT_ULPS`` of the float64 nearest
+    centroid, every distance its pick's float32 distance, and where the
+    plain version picked another centroid, the two within the expansion's
+    rounding of each other (``KMEANS_TIE_ULPS``).  Returns the readings."""
+    import torch
+
+    d = x.shape[1]
+    u = 2.0 ** -24
+    x64, c64 = x.double(), cent.double()
+    cn = (c64 * c64).sum(1)
+    qn = (x64 * x64).sum(1)
+    own = ((x64 - c64[ids.long()]) ** 2).sum(1)
+    # the float64 nearest, by the expansion on coordinates centred on the
+    # centroids' mean (so that a large common offset costs no digits)
+    mid = c64.mean(0)
+    xc, cc = x64 - mid, c64 - mid
+    qcn, ccn = (xc * xc).sum(1), (cc * cc).sum(1)
+    best = torch.cat([
+        (qcn[lo:lo + block, None] - 2.0 * (xc[lo:lo + block] @ cc.T)
+         + ccn[None, :]).min(1).values
+        for lo in range(0, x.shape[0], block)])
+    slack = (KMEANS_EXACT_ULPS * (d + 4) * u * best
+             + 1e-12 * (qcn + ccn.max()))
+    excess = float((own - best - slack).max())
+    if excess > 0:
+        raise AssertionError(f"{what}: a pick lies {excess} beyond the "
+                             "float64 nearest centroid's rounding")
+    dist_err = float(((dist.double() - own).abs()
+                      / own.clamp(min=1e-300)).max())
+    if dist_err > KMEANS_EXACT_ULPS * (d + 4) * u:
+        raise AssertionError(f"{what}: a distance is {dist_err} off its "
+                             "pick's")
+    diff = ids != plain_ids
+    a, p = ids[diff].long(), plain_ids[diff].long()
+    d_p = ((x64[diff] - c64[p]) ** 2).sum(1)
+    tol = KMEANS_TIE_ULPS * (d + 2) * u * (qn[diff] + cn[a] + cn[p])
+    tie_ratio = float(((own[diff] - d_p).abs() / tol).max()) \
+        if bool(diff.any()) else 0.0
+    if tie_ratio > 1.0:
+        raise AssertionError(f"{what}: kernel and plain differ beyond a "
+                             f"near-tie ({tie_ratio} of the tolerance)")
+    return dict(differ_share=float(diff.double().mean()),
+                tie_ratio_max=tie_ratio, dist_rel_err=dist_err,
+                nearest_excess=excess)
+
+
+def kmeans_phase(x):
+    """The k-means assignment at the 1M IVF build's shapes, from the 1M
+    path's PCA scores ``x`` (1,000,000 x 20 on the card): the kernel held
+    to float64 and to its plain version (``kmeans_held``), two launches
+    bit-identical, then timed beside its bound, the plain version, the
+    yardstick (``kmeans_library_step``) and the whole new fit; returns a
+    record."""
+    import torch
+
+    from cna_tpu_torch.ops import kmeans
+    from cna_tpu_torch.pp import ivf_fine
+
+    n, d = x.shape
+    c = n // KMEANS_ROWS_PER_CLUSTER
+    rng = np.random.RandomState(0)
+    sub = np.sort(rng.choice(n, KMEANS_SAMPLE, replace=False))
+    fit_x = x[torch.as_tensor(sub, device=x.device)].contiguous()
+    init = torch.as_tensor(rng.choice(KMEANS_SAMPLE, c, replace=False),
+                           device=x.device)
+    cent = fit_x[init].contiguous()
+    rows = fit_x.shape[0]
+    stats = torch.zeros(kmeans.N_STATS, dtype=torch.int64, device="cuda")
+    ids, dist = kmeans.kmeans_assign(fit_x, cent, stats=stats)
+    again = kmeans.kmeans_assign(fit_x, cent)
+    if not (torch.equal(again[0], ids) and torch.equal(again[1], dist)):
+        raise AssertionError("kmeans_assign: two launches differ")
+    del again
+    plain_ids, _ = kmeans.kmeans_assign_plain(fit_x, cent, KMEANS_CHUNK)
+    rec = dict(rows=rows, c=c, d=d, **kmeans_held(
+        fit_x, cent, ids, dist, plain_ids, f"kmeans_assign {rows}x{c}x{d}"))
+    counters = [int(v) for v in stats.cpu()]
+    rec.update(exact_candidates=counters[0], pairs=counters[1],
+               exact_share=counters[0] / max(counters[1], 1))
+    valid = torch.ones(rows, dtype=torch.bool, device=x.device)
+    rec["device_us_by_kernel"] = device_us_by_kernel(
+        lambda: kmeans.kmeans_assign(fit_x, cent), 3)
+    rec["ms"] = cuda_ms(lambda: kmeans.kmeans_assign(fit_x, cent), 10)
+    rec["plain_ms"] = cuda_ms(
+        lambda: kmeans.kmeans_assign_plain(fit_x, cent, KMEANS_CHUNK), 3)
+    rec["library_ms"] = cuda_ms(lambda: kmeans_library_step(fit_x, cent),
+                                3)
+    rec["update_ms"] = cuda_ms(
+        lambda: ivf_fine._lloyd_update(fit_x, ids, valid, cent), 10)
+    rec["fit_8_iterations_ms"] = cuda_ms(
+        lambda: ivf_fine._kmeans_fit_matmul(fit_x, valid, init, c, 8,
+                                            KMEANS_CHUNK), 2)
+    flops = 2.0 * rows * c * d
+    nbytes = 4.0 * (rows * d + c * d) + 8.0 * rows
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    rec.update(flops=flops, bytes=nbytes,
+               bound_ms=1e3 * max(flops / PEAK_DENSE_FLOPS, t_bytes),
+               bound_by="operations",
+               tf32_bound_ms=1e3 * max(flops / PEAK_TF32_FLOPS, t_bytes),
+               fp32_bound_ms=1e3 * max(flops / PEAK_FP32_FLOPS, t_bytes))
     return rec
 
 
@@ -2177,7 +2324,7 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     try:
         import cna_tpu_torch as ct
-        from cna_tpu_torch.ops import _build, ivf, knn, spmm_banded
+        from cna_tpu_torch.ops import _build, ivf, kmeans, knn, spmm_banded
     except ImportError as exc:
         print(f"chip_smoke: cna_tpu_torch not found beside this script "
               f"({exc})", file=sys.stderr)
@@ -2198,7 +2345,7 @@ def main(argv) -> int:
             if "registers" in line or "stack frame" in line:
                 log(f"  ptxas {name}:", line.strip())
     hmma = {}
-    for name in (knn.KERNEL, ivf.KERNEL):
+    for name in (knn.KERNEL, ivf.KERNEL, kmeans.KERNEL):
         hmma[name] = _build.sass_count(name, "HMMA")
         log(f"build: {hmma[name]} HMMA (tensor-core) opcodes in {name}'s "
             "SASS")
@@ -2233,6 +2380,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     log("ivf_score vs plain:", json.dumps(ivf_main))
     ivf_cases.append(ivf_main)
+    kmeans_main = kmeans_phase(scores_dev)
+    torch.cuda.empty_cache()
+    log("kmeans_assign vs plain:", json.dumps(kmeans_main))
 
     log("ivf vs exact at 100k:", json.dumps(ivf_vs_exact(ct, exact_res)))
 
@@ -2363,6 +2513,32 @@ def main(argv) -> int:
         # launches per graph build of the north-star bench (phase 12)
         "northstar_launches": {b: ns_rec["extras"]["kernel_launches"][b]
                                .get(ivf.KERNEL, 0) for b in (
+                                   "graph_cold", "graph_warm_first",
+                                   "graph_warm")},
+    }, {
+        # one assignment of the 1M IVF build's k-means sample; the bound is
+        # the roofline's (the dense peak of cnabench/peaks.json), the TF32
+        # and float32 ones beside it; the yardstick is the plain step the
+        # kernel replaced (tile, argmin, one-hot, oh.T @ x)
+        "name": kmeans.KERNEL,
+        "route": "cuda",
+        "source": "cna_tpu_torch/csrc/kmeans_assign.cu",
+        "replaces": "cna_tpu_torch/pp/ivf_fine.py:_kmeans_fit_matmul "
+                    "(plain PyTorch; no TPU kernel)",
+        "launches": atlas_counts.get(kmeans.KERNEL, 0),
+        "ms": kmeans_main["ms"],
+        "plain_ms": kmeans_main["plain_ms"],
+        "bound_ms": kmeans_main["bound_ms"],
+        "bound_by": kmeans_main["bound_by"],
+        "library_ms": kmeans_main["library_ms"],
+        "tf32_bound_ms": kmeans_main["tf32_bound_ms"],
+        "fp32_bound_ms": kmeans_main["fp32_bound_ms"],
+        "shape": [kmeans_main["rows"], kmeans_main["c"], kmeans_main["d"]],
+        "differ_share": kmeans_main["differ_share"],
+        "exact_share": kmeans_main["exact_share"],
+        "hmma_opcodes": hmma[kmeans.KERNEL],
+        "northstar_launches": {b: ns_rec["extras"]["kernel_launches"][b]
+                               .get(kmeans.KERNEL, 0) for b in (
                                    "graph_cold", "graph_warm_first",
                                    "graph_warm")},
     }, {

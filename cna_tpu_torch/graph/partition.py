@@ -53,22 +53,14 @@ def embedding_clusters(embedding, n_clusters, kmeans_iters=8,
     if n_fit < n:
         sub = np.sort(rng.choice(n, n_fit, replace=False))
         fit_x = x[torch.as_tensor(sub, device=x.device)]
-    # the one-hot matmul Lloyd update and a chunked assignment bound the
-    # (chunk, clusters) distance tile
+    # the plain assignment's (chunk, clusters) distance tile stays bounded
     chunk = int(np.clip(_pow2_up(int(3.5e8 // max(nc, 1)) + 1) // 2,
                         256, 32_768))
-    n_pad = ((n_fit + chunk - 1) // chunk) * chunk
-    if n_pad > n_fit:
-        fit_x = torch.nn.functional.pad(fit_x, (0, 0, 0, n_pad - n_fit))
-    valid = torch.arange(n_pad, device=x.device) < n_fit
+    valid = torch.ones(n_fit, dtype=torch.bool, device=x.device)
     init = torch.as_tensor(rng.choice(n_fit, nc, replace=False),
                            device=x.device)
     cent = _kmeans_fit_matmul(fit_x, valid, init, nc, kmeans_iters, chunk)
-    n_pad_all = ((n + chunk - 1) // chunk) * chunk
-    x_all = (torch.nn.functional.pad(x, (0, 0, 0, n_pad_all - n))
-             if n_pad_all > n else x)
-    cid = _assign_chunked(x_all, cent, chunk)[:n]
-    return fetch(cid).astype(np.int64)
+    return fetch(_assign_chunked(x, cent, chunk))
 
 
 def partition_clusters(n, n_shards, cluster_cells=64, max_clusters=4096):

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..ops.ivf import CANDS_PER_STEP, kernel_d_pad, score_blocks
+from ..ops.kmeans import kmeans_assign
 from ..utils.profiling import global_profiler
 from ..utils.transfer import as_tensor, fetch
 from .ivf import _recall_against, exact_knn_sample, measured_recall
@@ -73,49 +74,62 @@ def _bucket16(v: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# k-means with a matmul update (deterministic: no atomics)
+# k-means: the assignment kernel and a fixed-order update (no atomics)
 # ---------------------------------------------------------------------------
 
 
 def _kmeans_fit_matmul(x, valid, init_idx, n_clusters, iters, chunk):
     """Lloyd's algorithm at fine cluster counts.
 
-    The centroid update is a one-hot matmul per row chunk (d2 -> argmin ->
-    exact 0/1 one-hot -> ``oh.T @ x`` accumulated in the working dtype).
-    A scatter-add (``index_add_``) would use atomics on cuda, whose sum
-    order changes from run to run: the centroids, and with them the whole
-    index, would not be repeatable for one seed.
+    Each iteration assigns every row to its nearest centroid
+    (``kmeans_assign``: the kernel on the card, the plain (chunk, C) tile
+    on the CPU) and moves each centroid to the mean of its rows
+    (``_lloyd_update``).  Neither step uses atomics: a scatter-add's sum
+    order would change from run to run on cuda, and the centroids, and
+    with them the whole index, would not be repeatable for one seed.
 
-    ``x``: (n_pad, d) rows, zero-padded to a multiple of ``chunk``;
-    ``valid``: (n_pad,) row mask; ``init_idx``: (n_clusters,) row ids of
-    the initial centroids.
+    ``x``: (n, d) float32 rows; ``valid``: (n,) mask of the rows that take
+    part in the update; ``init_idx``: (n_clusters,) row ids of the initial
+    centroids; ``chunk`` bounds the plain assignment's tile.
     """
+    x = x.contiguous()
     cent = x[init_idx]
-    iot = torch.arange(n_clusters, device=x.device)[None, :]
     for _ in range(iters):
-        cn = torch.sum(cent * cent, dim=1)[None, :]
-        sums = torch.zeros_like(cent)
-        cnts = torch.zeros(n_clusters, dtype=x.dtype, device=x.device)
-        for lo in range(0, x.shape[0], chunk):
-            xb = x[lo:lo + chunk]
-            d2 = cn - 2.0 * (xb @ cent.T)
-            cid = torch.argmin(d2, dim=1)
-            oh = ((cid[:, None] == iot)
-                  & valid[lo:lo + chunk, None]).to(x.dtype)
-            sums = sums + oh.T @ xb
-            cnts = cnts + oh.sum(dim=0)
-        new = sums / torch.clamp(cnts, min=1.0)[:, None]
-        cent = torch.where(cnts[:, None] > 0, new, cent)
+        cid, _ = kmeans_assign(x, cent, chunk=chunk)
+        cent = _lloyd_update(x, cid, valid, cent)
     return cent
 
 
+def _lloyd_update(x, cid, valid, cent):
+    """The centroids' new positions: the mean of each cluster's valid
+    rows, summed in a fixed order, without atomics and without a read to
+    the host.
+
+    The rows are stably sorted by cluster id (invalid rows after every
+    cluster), each cluster's segment is bounded by ``searchsorted`` and
+    summed row by row in float64 by ``torch.segment_reduce``; the mean is
+    the float32 sum over the float32 count.  A cluster with no row keeps
+    its centroid."""
+    c = cent.shape[0]
+    # keys 0 .. C, C standing for the rows left out; searching for C + 1
+    # finds the end of the rows
+    key = torch.where(valid, cid.long(), c)
+    order = torch.argsort(key, stable=True)
+    bounds = torch.searchsorted(key[order],
+                                torch.arange(c + 2, device=x.device))
+    sums = torch.segment_reduce(x[order].double(), "sum", offsets=bounds,
+                                unsafe=True, initial=0.0)[:c]
+    cnts = (bounds[1:c + 1] - bounds[:c])[:, None]
+    new = sums.to(x.dtype) / torch.clamp(cnts, min=1).to(x.dtype)
+    return torch.where(cnts > 0, new, cent)
+
+
 def _assign_chunked(x, cent, chunk):
-    """argmin-distance cluster of every row (int64), in row chunks so the
-    (chunk, C) distance tile stays bounded at fine cluster counts."""
-    cn = torch.sum(cent * cent, dim=1)[None, :]
-    return torch.cat([
-        torch.argmin(cn - 2.0 * (x[lo:lo + chunk] @ cent.T), dim=1)
-        for lo in range(0, x.shape[0], chunk)])
+    """Nearest-centroid cluster of every row (int64), through
+    ``kmeans_assign``; ``chunk`` bounds the plain version's (chunk, C)
+    distance tile at fine cluster counts."""
+    return kmeans_assign(x.contiguous(), cent.contiguous(),
+                         chunk=chunk)[0].long()
 
 
 def _kd_order(pts: np.ndarray, leaf: int = 8) -> np.ndarray:
@@ -287,13 +301,11 @@ def build_fine_index(x_dev, n, d, seed=0, g=128, q_blocks=1,
                if n_fit < n else None)
         fit_x = (x_dev[torch.as_tensor(sub, device=dev)]
                  if sub is not None else x_dev)
-        # chunk so the (chunk, C) float32 distance tile stays <= ~1.4 GB
+        # chunk so the plain assignment's (chunk, C) float32 distance tile
+        # stays <= ~1.4 GB
         chunk = int(np.clip(_pow2_up(int(3.5e8 // max(c, 1)) + 1) // 2,
                             256, 32_768))
-        n_pad = _round_up(n_fit, chunk)
-        if n_pad > n_fit:
-            fit_x = torch.nn.functional.pad(fit_x, (0, 0, 0, n_pad - n_fit))
-        valid = torch.arange(n_pad, device=dev) < n_fit
+        valid = torch.ones(n_fit, dtype=torch.bool, device=dev)
         init_idx = torch.as_tensor(rng.choice(n_fit, c, replace=False),
                                    device=dev)
         with prof.phase("ivf_kmeans_fit", cells=n_fit):

@@ -18,6 +18,7 @@ import cna_tpu_torch as ct
 from cna_tpu_torch.graph.device import DeviceConnectivities
 from cna_tpu_torch.ops import _build
 from cna_tpu_torch.ops import ivf as ivf_ops
+from cna_tpu_torch.ops import kmeans as kmeans_ops
 from cna_tpu_torch.ops import knn as knn_ops
 from cna_tpu_torch.ops import spmm_banded as banded_ops
 
@@ -295,6 +296,93 @@ def test_ivf_score_rejects_what_it_cannot_take():
         ivf_ops.score_blocks(x4, sel.cpu(), probes, counts, csum, 5, g=64)
 
 
+def _kmeans_input(rows, c, d, kind, seed):
+    """Rows on the card with PCA-like decaying spreads ('offset': a common
+    offset 1,000 times the spread, 'random' without), and c of them as the
+    centroids; where c > 1 the last centroid repeats the first."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    scale = torch.rsqrt(torch.arange(1, d + 1, device="cuda",
+                                     dtype=torch.float32))
+    x = torch.randn(rows, d, generator=gen, device="cuda") * scale
+    if kind == "offset":
+        x = x * 1e-3 + 1.0
+    pick = (torch.randperm(rows, generator=gen, device="cuda")[:c]
+            if c <= rows else
+            torch.randint(rows, (c,), generator=gen, device="cuda"))
+    cent = x[pick]
+    if c > 1:
+        cent[c - 1] = cent[0]
+    return x.contiguous(), cent.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,c,d,kind", [
+    (65_536, 10_416, 20, "random"),     # the 1M IVF build's proportions
+    (65_536, 4_096, 2, "random"),       # the multi-device partition's
+    (1, 1, 1, "random"), (129, 3, 3, "random"), (1_000, 127, 33, "random"),
+    (5_001, 300, 128, "random"), (777, 1_000, 16, "random"),
+    (4_000, 200, 20, "offset")])
+def test_kmeans_assign_matches_plain(rows, c, d, kind):
+    """kmeans_assign against float64 and its plain version with
+    chip_smoke.py's tolerances (``kmeans_held``: every pick the float64
+    nearest up to the exact path's float32 rounding, every distance its
+    pick's, and where the plain version's expansion picks another
+    centroid, the two within that expansion's rounding of each other);
+    a repeated centroid never wins over its first copy; two launches give
+    the same bits.  Prints the share of rows where kernel and plain
+    differ."""
+    need_cuda()
+    import chip_smoke
+
+    x, cent = _kmeans_input(rows, c, d, kind, seed=rows + c + d)
+    before = _build.launch_counts().get(kmeans_ops.KERNEL, 0)
+    ids, dist = kmeans_ops.kmeans_assign(x, cent)
+    again = kmeans_ops.kmeans_assign(x, cent)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[kmeans_ops.KERNEL] == before + 2
+    assert torch.equal(ids, again[0]) and torch.equal(dist, again[1])
+    assert ids.dtype == torch.int32 and dist.dtype == torch.float32
+    assert c == 1 or not bool((ids == c - 1).any())
+    plain_ids, _ = kmeans_ops.kmeans_assign_plain(x, cent)
+    rec = chip_smoke.kmeans_held(x, cent, ids, dist, plain_ids,
+                                 f"kmeans_assign {rows}x{c}x{d} {kind}")
+    print(f"kmeans_assign {rows}x{c}x{d} {kind}: {rec}")
+    if kind == "random":
+        assert rec["differ_share"] < 0.01
+
+
+@pytest.mark.gpu
+def test_kmeans_fit_on_the_card_neither_syncs_nor_varies():
+    """The Lloyd loop on the card (the kernel, then the segmented update)
+    makes no synchronizing call and gives the same bits twice; at 1M x 20
+    ``build_fine_index`` launches the kernel 9 times (8 iterations, one
+    assignment) and two builds from one seed lay out identical indexes."""
+    need_cuda()
+    from cna_tpu_torch.pp import ivf_fine
+
+    x, _ = _kmeans_input(1_000_000, 1, 20, "random", seed=11)
+    fit_x = x[:200_000]
+    valid = torch.arange(200_000, device="cuda") < 190_000
+    init = torch.arange(0, 190_000, 95, device="cuda")
+    args = (fit_x, valid, init, len(init), 3, 32_768)
+    first = ivf_fine._kmeans_fit_matmul(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = ivf_fine._kmeans_fit_matmul(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(first, second)
+
+    before = _build.launch_counts().get(kmeans_ops.KERNEL, 0)
+    a = ivf_fine.build_fine_index(x, 1_000_000, 20, seed=3)
+    assert _build.launch_counts()[kmeans_ops.KERNEL] == before + 9
+    b = ivf_fine.build_fine_index(x, 1_000_000, 20, seed=3)
+    assert torch.equal(a.x4, b.x4) and np.array_equal(a.order, b.order)
+    assert np.array_equal(a.layout_rows, b.layout_rows)
+
+
 @pytest.mark.gpu
 def test_ivf_neighbors_on_the_card_go_through_the_kernel():
     need_cuda()
@@ -308,6 +396,8 @@ def test_ivf_neighbors_on_the_card_go_through_the_kernel():
         ct.pp.neighbors(d, n_neighbors=15, method="ivf")
         assert ct.ops.launch_counts().get(ivf_ops.KERNEL, 0) >= 1
         assert knn_ops.KERNEL not in ct.ops.launch_counts()
+        # the k-means: 8 Lloyd iterations and the assignment of every row
+        assert ct.ops.launch_counts()[kmeans_ops.KERNEL] == 9
         conn = d.obsp["connectivities"]
         assert isinstance(conn, DeviceConnectivities)
         assert conn.ell.device.type == "cuda"

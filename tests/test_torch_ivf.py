@@ -277,6 +277,99 @@ def test_kmeans_is_repeatable():
     assert torch.equal(a, b)
 
 
+def _one_hot_update(x, cid, valid, cent):
+    """The Lloyd update the segmented one replaced: an exact 0/1 one-hot of
+    the valid rows multiplied back, ``oh.T @ x``."""
+    c = cent.shape[0]
+    oh = ((cid.long()[:, None] == torch.arange(c)[None, :])
+          & valid[:, None]).to(x.dtype)
+    cnts = oh.sum(dim=0)
+    new = (oh.T @ x) / torch.clamp(cnts, min=1.0)[:, None]
+    return torch.where(cnts[:, None] > 0, new, cent)
+
+
+@pytest.mark.parametrize("n,d,c,seed", [(3_000, 6, 40, 7), (513, 20, 97, 8)])
+def test_segmented_update_equals_one_hot_on_dyadic_points(n, d, c, seed):
+    """On dyadic points every sum is exact in float32 and float64, so the
+    fixed-order segmented update gives the one-hot matmul's centroids bit
+    for bit: invalid rows take no part, an empty cluster keeps its
+    centroid."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(dyadic(rng.randn(n, d), bits=6).astype(np.float32))
+    cent = torch.from_numpy(dyadic(rng.randn(c, d), bits=6).astype(
+        np.float32))
+    cid = torch.from_numpy(rng.randint(0, c, n).astype(np.int32))
+    cid[cid == 3] = 4                        # cluster 3 has no row
+    valid = torch.from_numpy(rng.rand(n) > 0.2)
+    cid[~valid & (cid == 5)] = 6
+    valid[cid == 6] = False                  # cluster 6 has only invalid rows
+    got = ivf_fine._lloyd_update(x, cid, valid, cent)
+    want = _one_hot_update(x, cid, valid, cent)
+    assert torch.equal(got, want)
+    assert torch.equal(got[3], cent[3]) and torch.equal(got[6], cent[6])
+    assert not torch.equal(got[4], cent[4])
+
+
+def test_kmeans_assign_on_cpu_equals_assign_chunked():
+    """The wrapper on a CPU tensor is the plain version: the ids of
+    ``_assign_chunked`` as int32 (whatever the chunk), each with its
+    direct float32 squared distance."""
+    from cna_tpu_torch.ops import kmeans
+
+    x = torch.from_numpy(
+        np.random.RandomState(9).randn(2_000, 7).astype(np.float32))
+    cent = x[::37].contiguous()
+    before = dict(_build.launch_counts())
+    ids, dist = kmeans.kmeans_assign(x, cent, chunk=300)
+    assert _build.launch_counts() == before
+    assert ids.dtype == torch.int32 and dist.dtype == torch.float32
+    assert ids.shape == dist.shape == (2_000,)
+    assert torch.equal(ids.long(), ivf_fine._assign_chunked(x, cent, 256))
+    assert torch.equal(ids, kmeans.kmeans_assign(x, cent)[0])
+    assert torch.equal(dist, ((x - cent[ids.long()]) ** 2).sum(1))
+    full = ((x[:, None, :] - cent[None]) ** 2).sum(-1)
+    assert bool((dist <= full.min(1).values * (1 + 1e-5)).all())
+    assert bool((dist[::37] == 0).all())
+
+
+@pytest.mark.parametrize("what", ["float64", "non_contiguous", "d129"])
+def test_kmeans_assign_rejects_what_the_kernel_cannot_take(what):
+    """Raised on every device, before the route is chosen."""
+    from cna_tpu_torch.ops import kmeans
+
+    x = torch.randn(64, 8)
+    cent = x[:4].contiguous()
+    if what == "float64":
+        args, err = (x.double(), cent.double()), TypeError
+    elif what == "non_contiguous":
+        args, err = (torch.randn(8, 64).T, cent), ValueError
+    else:
+        args, err = (torch.randn(64, 129), torch.randn(4, 129)), ValueError
+    with pytest.raises(err):
+        kmeans.kmeans_assign(*args)
+
+
+def test_kmeans_fit_is_repeatable_with_the_segmented_update():
+    """Invalid rows and a duplicated initial centroid: the fit gives the
+    same bits twice, no invalid row moves a centroid, and after one
+    iteration the duplicate, whose cluster is empty (ties go to the lower
+    id), keeps its position."""
+    x = torch.from_numpy(
+        np.random.RandomState(10).randn(4_096, 5).astype(np.float32))
+    valid = torch.arange(4_096) < 4_000
+    init = torch.arange(0, 3_968, 62)
+    init[1] = init[0]
+    args = (x, valid, init, 64, 4, 1024)
+    a = ivf_fine._kmeans_fit_matmul(*args)
+    b = ivf_fine._kmeans_fit_matmul(*args)
+    assert torch.equal(a, b)
+    far = x.clone()
+    far[4_000:] = 1e6
+    assert torch.equal(ivf_fine._kmeans_fit_matmul(far, *args[1:]), a)
+    one = ivf_fine._kmeans_fit_matmul(x, valid, init, 64, 1, 1024)
+    assert torch.equal(one[1], x[0]) and not torch.equal(one[0], x[0])
+
+
 def test_compact_coordinates_roundtrip():
     """The invariants of tests/test_ivf_fine.py's
     test_compact_coordinates_roundtrip, on the port's own index."""
