@@ -9,13 +9,23 @@ loadings, so the entire (Nnull x |ks|) grid collapses into two matmuls and
 a cumsum.
 
 Math (per phenotype column z, with zcond = M z scaled to unit std):
-  beta   = U' zcond                       (all S loadings)
+  beta   = U' zcond                       (all npc loadings)
   ssered = zcond' zcond
   deltasse(k) = sum_{i<=k} beta_i^2       (orthonormal U => exact)
-  ssefull(k)  = ssered - deltasse(k)
+  ssefull(k)  = sum_{k<i<=npc} beta_i^2 + |zcond - U beta|^2
   F(k)   = (deltasse/k) / (ssefull/n)     ref ``_association.py:41-48``
   p(k)   = F_sf(F, k, n-(1+r+k))
-  r2(k)  = deltasse/ssered
+  r2(k)  = deltasse/(deltasse + ssefull)  (= deltasse/ssered, at most 1)
+
+The reference writes ``ssefull = ssered - deltasse``, equal in exact
+arithmetic.  Here it is a sum of squares, non-negative by construction:
+at an R^2 near 1 the subtraction cancels, and a float32 U from ``eigh``
+is orthonormal only to a few 1e-5, which moves ``sum beta^2`` by more than
+the residual (1M cells x 200 samples: ``sum beta^2`` 200.008 for
+``ssered`` 200 and a residual of 0.006, so ``ssefull`` read negative and
+p read 1).  The tail sum over the same U carries that error only through
+the few loadings past k.  Summing in float64 instead does not help: the
+error is in U, not in the sums.
 
 The F survival function goes through the regularized incomplete beta
 identity ``F_sf(f; d1, d2) = I_{d2/(d2+d1 f)}(d2/2, d1/2)``.
@@ -103,6 +113,21 @@ def f_sf(f, d1, d2):
     return val.to(out_dtype)
 
 
+def sums_of_squares(u, z, ks):
+    """(deltasse (|ks|, m), ssefull (|ks|, m)) of the top-k regressions
+    of the columns of ``z`` on ``u``'s leading columns.  ``ssefull`` is a
+    sum of squares, never ``ssered - deltasse`` (module docstring)."""
+    beta = u.T @ z  # (npc, m)
+    b2 = beta * beta
+    deltasse = torch.cumsum(b2, dim=0)[ks - 1, :]
+    # tail[i] = sum_{j >= i} beta_j^2 (0-based), tail[npc] = 0; plus the
+    # part of z outside span(U), 0 up to rounding for a full basis
+    tail = torch.cat([b2.flip(0).cumsum(0).flip(0),
+                      torch.zeros_like(b2[:1])])
+    outside = torch.sum((z - u @ beta) ** 2, dim=0)
+    return deltasse, tail[ks, :] + outside[None, :]
+
+
 def minp_stats_batch(u, m_proj, y_cols, ks, r):
     """Vectorized min-p F-test over a PC-count grid, for many phenotypes.
 
@@ -129,16 +154,12 @@ def minp_stats_batch(u, m_proj, y_cols, ks, r):
     n = y_cols.shape[0]
     z = m_proj @ y_cols
     z = moments.scale_by_std(z, ddof=0, axis=0)
-    beta = u.T @ z  # (npc, m)
-    cum = torch.cumsum(beta * beta, dim=0)  # (npc, m)
-    ssered = torch.sum(z * z, dim=0)  # (m,)
-    deltasse = cum[ks - 1, :]  # (|ks|, m)
-    ssefull = ssered[None, :] - deltasse
+    deltasse, ssefull = sums_of_squares(u, z, ks)
     ksf = ks.to(z.dtype)[:, None]
     fstat = (deltasse / ksf) / (ssefull / n)
     d2 = (n - (1.0 + r + ksf)).expand_as(fstat)
     ps = f_sf(fstat, ksf.expand_as(fstat), d2)
-    r2s = deltasse / ssered[None, :]
+    r2s = deltasse / (deltasse + ssefull)
     # nanargmin over the ks axis (reference ``_association.py:60``); on
     # ties torch.argmin returns the first index, as numpy does
     ps_for_min = torch.where(torch.isnan(ps), torch.full_like(ps, torch.inf),

@@ -633,19 +633,23 @@ def _qc_nam_arrays(nam_arrays: NamArrays, batches: pd.Series, show_progress=Fals
         keep = np.repeat(True, nam_arrays.nam.shape[1])
         return nam_arrays, keep
 
-    kurt = fetch(moments.batch_kurtosis(nam_arrays.nam, ids, nb))
-    threshold = max(6, 2 * np.median(kurt))
-    out("throwing out neighborhoods with batch kurtosis >=", threshold)
-    keep = kurt < threshold
-    out("keeping", keep.sum(), "neighborhoods")
+    prof = global_profiler()
+    with prof.phase("batch_qc"):
+        kurt = fetch(moments.batch_kurtosis(nam_arrays.nam, ids, nb))
+        threshold = max(6, 2 * np.median(kurt))
+        out("throwing out neighborhoods with batch kurtosis >=", threshold)
+        keep = kurt < threshold
+        out("keeping", keep.sum(), "neighborhoods")
+        prof.count("dropped", int(keep.size - keep.sum()))
 
-    keep_idx = torch.as_tensor(np.nonzero(keep)[0], device=nam_arrays.nam.device)
-    filtered = NamArrays(
-        nam=nam_arrays.nam[:, keep_idx],
-        samples=nam_arrays.samples,
-        cells=nam_arrays.cells[keep],
-        nsteps=nam_arrays.nsteps,
-    )
+        keep_idx = torch.as_tensor(np.nonzero(keep)[0],
+                                   device=nam_arrays.nam.device)
+        filtered = NamArrays(
+            nam=nam_arrays.nam[:, keep_idx],
+            samples=nam_arrays.samples,
+            cells=nam_arrays.cells[keep],
+            nsteps=nam_arrays.nsteps,
+        )
     return filtered, keep
 
 
@@ -686,24 +690,28 @@ def _ridge_sweep(nam_c, c, ridges, batch_ids, n_batch_cols, num_batches):
     stop once the median batch kurtosis of the running NAM is <= 6.
 
     Returns (nam_resid, M_last, n_ridges_used, median-kurtosis trail);
-    trail entries past the exit hold an inf sentinel.
+    trail entries past the exit hold an inf sentinel.  Profiling span
+    ``ridge_sweep``, counter ``ridges`` (the steps taken).
     """
+    prof = global_profiler()
     nridges = ridges.shape[0]
     medk_buf = torch.full((nridges,), torch.inf, dtype=nam_c.dtype,
                           device=nam_c.device)
     nam_r = nam_c
     m_proj = torch.eye(nam_c.shape[0], dtype=nam_c.dtype, device=nam_c.device)
     i = 0
-    while i < nridges:
-        m_proj = linalg.residual_projector(c, ridge=ridges[i],
-                                           n_batch_cols=n_batch_cols)
-        nam_r = m_proj @ nam_r
-        kurt = moments.batch_kurtosis(nam_r, batch_ids, num_batches)
-        medk = moments.median(kurt)
-        medk_buf[i] = medk
-        i += 1
-        if bool(scalar(medk <= 6)):
-            break
+    with prof.phase("ridge_sweep"):
+        while i < nridges:
+            m_proj = linalg.residual_projector(c, ridge=ridges[i],
+                                               n_batch_cols=n_batch_cols)
+            nam_r = m_proj @ nam_r
+            kurt = moments.batch_kurtosis(nam_r, batch_ids, num_batches)
+            medk = moments.median(kurt)
+            medk_buf[i] = medk
+            i += 1
+            if bool(scalar(medk <= 6)):
+                break
+        prof.count("ridges", i)
     return nam_r, m_proj, i, medk_buf
 
 
@@ -715,9 +723,19 @@ def _resid_nam_core(arr, covs_arr, batches, samples, ridges=None,
     """
     out = select_output(show_progress)
     n = arr.shape[0]
-    opts = dict(dtype=arr.dtype, device=arr.device)
+    single_batch = batches is None or len(np.unique(batches)) == 1
+    # the ridge sweep runs in float64 whatever the NAM's dtype.  A ridge
+    # shrinks near-equal batches' means alike, which leaves their kurtosis
+    # as it was, so the stop comes at small ridges, where the batch means
+    # are small enough for float32 rounding to move the kurtosis across 6
+    # (a float32 sweep can stop a ridge early); and the last projector may
+    # come from a singular system (the centred dummies sum to zero), which
+    # float32 solves about 1e-6 off
+    wide = arr.dtype if single_batch else torch.float64
+    opts = dict(dtype=wide, device=arr.device)
 
-    nam_c = arr - arr.mean(dim=0)
+    nam_c = arr.to(wide)
+    nam_c = nam_c - nam_c.mean(dim=0)
     if covs_arr is None:
         covs_arr = torch.zeros((n, 0), **opts)
     else:
@@ -725,7 +743,6 @@ def _resid_nam_core(arr, covs_arr, batches, samples, ridges=None,
                                                        **opts),
                                        ddof=1, axis=0)
 
-    single_batch = batches is None or len(np.unique(batches)) == 1
     if single_batch:
         c = covs_arr
         m_proj = linalg.residual_projector(c)
@@ -743,6 +760,7 @@ def _resid_nam_core(arr, covs_arr, batches, samples, ridges=None,
             ridges if ridges is not None else _DEFAULT_RIDGES, **opts)
         nam_r, m_proj, nridges, medk_buf = _ridge_sweep(
             nam_c, c, ridge_schedule, ids, nbcols, nb)
+        nam_r, m_proj = nam_r.to(arr.dtype), m_proj.to(arr.dtype)
         if out.enabled:
             medk = fetch(medk_buf)
             sched = fetch(ridge_schedule)
