@@ -96,6 +96,15 @@ Phases, each of which must pass (any failure exits non-zero):
     (100,000 cells), with its limits.  (e) ``bench_torch.bench()`` at its
     defaults (100,000 cells x 50 samples x 1,000 permutations): one exact
     kNN kernel launch per graph build.
+13. the diffusion step's gather SpMM at the main paths' shapes: phase
+    4's 100,000-cell graph at 50 columns, and the graph of the
+    tuberculosis-atlas deployment (``cnabench/configs/tb_500k.json``:
+    500,089 cells, auto -> IVF) at 259 columns: one launch a step, held
+    to the plain step and to the float64 CPU step, two launches
+    bit-identical; the kernel, the whole step, the plain step and
+    ``torch.sparse.mm`` of the same graph's CSR (the library yardstick,
+    never called by the package) timed with CUDA events beside the
+    step's bytes bound; the peak memory a step adds, kernel and plain.
 
 Phase 5 also lays out its 1,000,000-cell IVF graph with ``pp.umap``
 (init 'auto' -> 'pca', 200 epochs): the edge, init and SGD seconds, ms per
@@ -227,6 +236,13 @@ BANDED_RTOL = {"float32": 1e-5, "float64": 1e-12}
 FORMAT_NAM_RTOL = 1e-4
 FORMAT_NCORR_MIN = 0.9999
 FORMAT_NSTEPS = 3  # diffusion steps of the fixed-step NAM comparisons
+# phase 13, the gather SpMM: the kernel's step against the plain step on
+# the card, relative to max|y| (float32 sums in another order), and against
+# the float64 step of the same graph and state on the CPU (float32 inputs
+# and arithmetic: about 22 rounded terms a row)
+GATHER_RTOL = 1e-5
+GATHER_CPU_RTOL = 1e-5
+GATHER_REPS = 20
 
 # phase 12, the north-star configuration: bench.py's knobs
 # CNA_BENCH_CELLS=1000000 CNA_BENCH_NNULL=10000 CNA_BENCH_SAMPLES=200 (the
@@ -982,6 +998,7 @@ def drive_path(ct, d, y, method):
     counts = launch_counts()
 
     n_first = len(prof.phases)
+    steps = diffusion_launches(prof.phases[:n_first], counts, "association")
     res2 = ct.tl.association(d, y, "id", Nnull=1000, seed=0,
                              return_full=True)
     torch.cuda.synchronize()
@@ -1012,11 +1029,28 @@ def drive_path(ct, d, y, method):
                knn_method_resolved=d.uns["neighbors"]["params"][
                    "knn_method_resolved"],
                graph=repr(conn), p=res.p, k=res.k, kept=int(kept.sum()),
+               diffusion_steps=steps,
                graph_s=t1 - t0, association_first_s=t2 - t1,
                association_second_s=t3 - t2, phases_first=phases[:n_first],
                phases_second_association=phases[n_first:],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return counts, rec, res
+
+
+def diffusion_launches(records, counts, what):
+    """The diffusion steps of the span ``records`` of one run of ``what``,
+    checked against the kernel: every ``diffusion`` span's ``spmm_kernel``
+    equals its ``steps``, and the run's ``gather_spmm`` launches (``counts``,
+    set to 0 just before it) equal their sum; returns that sum."""
+    diff = [r for r in records if r["phase"] == "diffusion"]
+    steps = sum(r["steps"] for r in diff)
+    if not diff or counts.get("gather_spmm", 0) != steps \
+            or any(r.get("spmm_kernel") != r["steps"] for r in diff):
+        spans = [(r["steps"], r.get("spmm_kernel")) for r in diff]
+        raise AssertionError(
+            f"{what}: gather_spmm launches {counts.get('gather_spmm', 0)}, "
+            f"diffusion spans (steps, spmm_kernel) {spans}")
+    return steps
 
 
 def atlas_path(ct):
@@ -2236,6 +2270,195 @@ def northstar_phase(ct):
     return ns, default, checks
 
 
+def gather_case(label, graph, codes, seed=11):
+    """The gather SpMM kernel on ``graph`` (a card graph of the default
+    format) with a random (N, S) state, S the samples of ``codes`` (each
+    row's sample, in the graph's row order): one launch a step, the step
+    held to the plain step on the card and to the float64 step on the
+    CPU, two launches bit-identical; the association's own first states
+    (the one-hot of ``codes`` and the kernel's next two steps from it,
+    mostly exact zeros) held to the plain step alike; the kernel alone,
+    the whole step (the kernel and the COO spill), the plain step and
+    ``torch.sparse.mm`` of the graph's CSR timed beside the bytes bound;
+    the peak memory a step allocates; returns a record."""
+    import torch
+
+    from cna_tpu_torch.graph.device import DeviceConnectivities
+    from cna_tpu_torch.ops import _build, spmm
+
+    n = graph.n_rows
+    s_cols = int(codes.max()) + 1
+    gen = torch.Generator(device=graph.device)
+    gen.manual_seed(seed)
+    state = torch.rand((n, s_cols), generator=gen, device=graph.device,
+                       dtype=graph.dtype)
+    colsums = graph.colsums(1)
+    args = spmm.kernel_slots(graph)
+
+    def kernel():
+        return spmm.gather_spmm(state, *args, colsums, 1)
+
+    def step():
+        return spmm.diffusion_step(state, graph, colsums, 1)
+
+    def plain():
+        return spmm.diffusion_step_plain(state, graph, colsums, 1)
+
+    def peak_mb(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+    before = _build.launch_counts().get(spmm.KERNEL, 0)
+    y = step()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts().get(spmm.KERNEL, 0) - before
+    ref = plain()
+    scale = float(ref.abs().max())
+    rel = float((y - ref).abs().max()) / scale
+    cpu_graph = graph_on(graph, "cpu", torch.float64)
+    cpu_ref = spmm.diffusion_step_plain(
+        state.cpu().double(), cpu_graph, cpu_graph.colsums(1), 1)
+    cpu_rel = float((y.cpu().double() - cpu_ref).abs().max()) / scale
+    del ref, cpu_ref, cpu_graph
+    same_bits = torch.equal(kernel(), kernel())
+    onehot = (codes.to(graph.device)[:, None] == torch.arange(
+        s_cols, device=graph.device)).to(graph.dtype)
+    starts, st = [], onehot
+    for _ in range(3):
+        y_st = spmm.diffusion_step(st, graph, colsums, 1)
+        ref_st = spmm.diffusion_step_plain(st, graph, colsums, 1)
+        starts.append(dict(
+            zero_share=float((st == 0).double().mean()),
+            max_rel_err=float((y_st - ref_st).abs().max())
+            / float(ref_st.abs().max()),
+            bit_identical=torch.equal(
+                spmm.gather_spmm(st, *args, colsums, 1),
+                spmm.gather_spmm(st, *args, colsums, 1))))
+        st = y_st
+    del onehot, st, y_st, ref_st
+    rec = dict(label=label, graph=type(graph).__name__, n=n, s=s_cols,
+               dtype=str(graph.dtype).replace("torch.", ""),
+               launches_per_step=launches, max_rel_err=rel,
+               cpu_f64_rel_err=cpu_rel, bit_identical=same_bits,
+               start_states=starts,
+               buckets=len(getattr(graph, "ext_indices", ())),
+               coo_tail=int(graph.overflow_rows.shape[0]),
+               launch_shape=spmm.launch_shape(
+                   s_cols, state.element_size(), state.data_ptr(),
+                   state.stride(0)))
+    if launches != 1 or not same_bits or rel > GATHER_RTOL \
+            or cpu_rel > GATHER_CPU_RTOL \
+            or any(st["max_rel_err"] > GATHER_RTOL or not st["bit_identical"]
+                   for st in starts):
+        raise AssertionError(f"gather_spmm {label}: {rec}")
+
+    r, c, v = DeviceConnectivities(graph, None, n).edges()
+    lib = torch.sparse_coo_tensor(torch.stack([r, c]), v, (n, n))
+    lib = lib.coalesce().to_sparse_csr()
+    nnz = int(v.numel())
+
+    def library():
+        t = state / colsums[:, None]
+        return torch.sparse.mm(lib, t) + t
+
+    lib_rel = float((library() - y).abs().max()) / scale
+    item = state.element_size()
+    nbytes = 2.0 * n * s_cols * item + n * item + (4.0 + item) * nnz
+    flops = 2.0 * nnz * s_cols + 3.0 * n * s_cols
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    weights = [args[1], *args[3]]
+    rec.update(
+        nnz=nnz, slots=sum(int(w.numel()) for w in weights), flops=flops,
+        bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_rel_err=lib_rel,
+        ms=cuda_ms(kernel, GATHER_REPS), step_ms=cuda_ms(step, GATHER_REPS),
+        plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 5),
+        step_peak_mb=peak_mb(step), plain_peak_mb=peak_mb(plain))
+    rec["roofline_pct"] = 100.0 * rec["bound_ms"] / rec["step_ms"]
+    return rec
+
+
+def graph_on(graph, dev, dtype):
+    """``graph`` with its tensors on ``dev`` and its weights in
+    ``dtype``."""
+    import dataclasses
+
+    import torch
+
+    def move(v):
+        if isinstance(v, tuple):
+            return tuple(move(t) for t in v)
+        if not isinstance(v, torch.Tensor):
+            return v
+        return v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+
+    return dataclasses.replace(graph, **{
+        f.name: move(getattr(graph, f.name))
+        for f in dataclasses.fields(graph)})
+
+
+def gather_phase(ct):
+    """Phase 13: ``gather_case`` on phase 4's 100,000-cell graph at 50
+    columns and on the tuberculosis-atlas deployment's IVF graph
+    (500,089 cells, ``cnabench/data/tb.py`` from seed 1) at 259 columns,
+    then that deployment's ``tl.nam`` with its 46 batches, its
+    ``gather_spmm`` launches held to its diffusion steps
+    (``diffusion_launches``); returns the two records."""
+    import torch
+
+    from cna_tpu_torch.ops import launch_counts, reset_launch_counts
+    from cna_tpu_torch.tools._nam import get_device_graph
+    from cna_tpu_torch.utils import profiling
+    from cnabench.data import tb
+
+    def graph_codes(d):
+        # the card graph and each row's sample, in the graph's row order
+        graph, ordering = get_device_graph(d)
+        codes = np.unique(d.obs["id"].to_numpy(), return_inverse=True)[1]
+        if ordering is not None:  # perm[compact] = original
+            codes = codes[ordering.perm]
+        return graph, torch.as_tensor(codes)
+
+    recs = []
+    d, _ = dataset(ct, cells_per_sample=2000)
+    ct.pp.pca(d, n_comps=20)
+    ct.pp.neighbors(d, n_neighbors=15)
+    recs.append(gather_case("100k x 50", *graph_codes(d)))
+    del d
+    torch.cuda.empty_cache()
+    with open(os.path.join(HERE, "cnabench", "configs", "tb_500k.json")) as f:
+        cfg = json.load(f)
+    t0 = time.perf_counter()
+    x, obs, samplem = tb.tb_atlas(cfg, 1)
+    d = ct.CellData(X=x, obs=obs)
+    ct.pp.pca(d, n_comps=cfg["n_comps"])
+    ct.pp.neighbors(d, n_neighbors=cfg["n_neighbors"],
+                    method=cfg["knn_method"])
+    build_s = time.perf_counter() - t0
+    rec = gather_case(f"tb_500k {cfg['n_cells']} x {cfg['n_samples']}",
+                      *graph_codes(d))
+    rec["graph_build_s"] = build_s
+    prof = profiling.enable_profiling()
+    try:
+        reset_launch_counts()
+        ct.tl.nam(d, "id", batches=samplem["batch"])
+        torch.cuda.synchronize()
+        rec["nam_steps"] = diffusion_launches(prof.phases, launch_counts(),
+                                              "tb_500k tl.nam")
+    finally:
+        profiling.disable_profiling()
+    recs.append(rec)
+    del d
+    torch.cuda.empty_cache()
+    return recs
+
+
 def compare_with_tree(tree, inputs, exact_res):
     """``--against DIR``: the package of the checkout at ``tree`` runs
     ``knn_exact`` on ``inputs`` and the 100,000-cell path in a second
@@ -2446,6 +2669,12 @@ def main(argv) -> int:
     log("north-star checks:", json.dumps(ns_checks))
     log(f"north-star phase: {time.perf_counter() - t0:.1f} s")
 
+    # the diffusion step's gather SpMM at the main paths' shapes (phase 13)
+    gather_recs = gather_phase(ct)
+    for rec in gather_recs:
+        log("gather_spmm vs plain:", json.dumps(rec))
+    gather_main = gather_recs[-1]
+
     main_case = cases[0]
     kernels = [{
         "name": knn.KERNEL,
@@ -2563,6 +2792,40 @@ def main(argv) -> int:
         "shape": {key: banded_main[key] for key in
                   ("n", "n_pad", "k", "s", "row_tile", "slab_rows",
                    "in_band_edges", "compact_slots")},
+    }, {
+        # one diffusion step of the tuberculosis-atlas deployment's graph
+        # (phase 13); "ms" is the launch alone, "step_ms" with the COO
+        # spill; the library yardstick is torch.sparse.mm of the graph's
+        # CSR with the division and the self term around it
+        "name": "gather_spmm",
+        "route": "cuda",
+        "source": "cna_tpu_torch/csrc/gather_spmm.cu",
+        "replaces": "cna_tpu_torch/ops/spmm.py:diffusion_step_plain "
+                    "(plain PyTorch; the TPU package's step was an XLA "
+                    "gather, no TPU kernel)",
+        # launches of phase 4's association (the 100k path), each of its
+        # diffusion steps one (drive_path checks them against the spans)
+        "launches": counts.get("gather_spmm", 0),
+        "diffusion_steps": slice_rec["diffusion_steps"],
+        "tb_500k_nam_steps": gather_main["nam_steps"],
+        "launches_per_step": gather_main["launches_per_step"],
+        "max_rel_err": max(r["max_rel_err"] for r in gather_recs),
+        "ms": gather_main["ms"],
+        "step_ms": gather_main["step_ms"],
+        "plain_ms": gather_main["plain_ms"],
+        "bound_ms": gather_main["bound_ms"],
+        "bound_by": gather_main["bound_by"],
+        "library_ms": gather_main["library_ms"],
+        "shape": {key: gather_main[key] for key in
+                  ("n", "s", "nnz", "buckets", "coo_tail")},
+        "at_100k": {key: gather_recs[0][key] for key in
+                    ("ms", "step_ms", "plain_ms", "bound_ms",
+                     "library_ms")},
+        # the association's first states (mostly exact zeros): the worst
+        # error against the plain step over both shapes
+        "start_states_max_rel_err": max(
+            st["max_rel_err"] for r in gather_recs
+            for st in r["start_states"]),
     }]
     log(f"whole script: {time.perf_counter() - t_start:.1f} s, the kernels' "
         "build included")

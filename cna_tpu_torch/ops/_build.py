@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # every kernel source of the package (csrc/<name>.cu)
-KERNELS = ("knn_exact", "ivf_score", "banded_spmm", "kmeans_assign")
+KERNELS = ("knn_exact", "ivf_score", "banded_spmm", "kmeans_assign",
+           "gather_spmm")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LAUNCHES: dict[str, int] = {}

@@ -17,9 +17,9 @@ the TPU package's:
   tile's slab start; padding and out-of-band slots point at 0 with weight
   0; ``weights`` (N_pad, K) the in-band edge weights;
 * ``slab_starts`` (T,) int32 is clipped to ``[0, N_pad - slab]``;
-* out-of-band edges go to a spill ELL (row gather, ``ops.spmm.ell_spmm``)
-  and what exceeds its width to a COO tail (``coo_spmm_add``), both
-  outside the kernel;
+* out-of-band edges go to a spill ELL (row gather, ``ops.spmm.ell_spmm``:
+  the gather kernel on the card) and what exceeds its width to a COO tail
+  (``coo_spmm_add``), both outside the banded kernel;
 * the in-band product accumulates in the state's own dtype at full
   precision (float32, or float64 under x64): no TF32, no bf16.
 
@@ -50,7 +50,7 @@ from ..graph.ell import _np_float, _pack_ell_host, _round_up
 from ..utils.checks import kernel_outputs
 from ..utils.transfer import fetch, to_device
 from . import _build
-from .spmm import _auto_block, coo_spmm_add, ell_spmm
+from .spmm import _auto_block, coo_spmm_add, ell_spmm, ell_spmm_plain
 
 KERNEL = "banded_spmm"
 SLOT_GROUP = 4  # slots to a 16-byte load of the compacted indices
@@ -371,8 +371,8 @@ def _banded_spmm_cuda(compact, slab_starts, x, row_tile):
 def banded_spmm_plain(lidx, weights, slab_starts, x, row_tile, slab_rows):
     """Plain PyTorch version of the kernel, on any device: slab-local
     indices become absolute (``slab_starts[tile] + lidx``) and the product
-    is a row gather plus contraction (``ops.spmm.ell_spmm``), in row
-    blocks that bound the gathered buffer.  Same contract as the kernel:
+    is a row gather plus contraction (``ops.spmm.ell_spmm_plain``), in
+    row blocks that bound the gathered buffer.  Same contract as the kernel:
     (N_pad, S) out, slab rows beyond ``x`` read as zeros."""
     n_pad, k = lidx.shape
     n_x, s = x.shape
@@ -383,15 +383,16 @@ def banded_spmm_plain(lidx, weights, slab_starts, x, row_tile, slab_rows):
     inside = gidx < n_x
     w = torch.where(inside, weights, torch.zeros_like(weights))
     gidx = torch.where(inside, gidx, torch.zeros_like(gidx))
-    return ell_spmm(gidx, w, x, block_rows=_auto_block(n_pad, k, s))
+    return ell_spmm_plain(gidx, w, x, block_rows=_auto_block(n_pad, k, s))
 
 
 def banded_spmm(graph: BandedGraph, x):
     """``y = A @ x`` for a banded-packed graph; (N, S) dense in/out.
 
     The in-band part runs in the CUDA kernel (``banded_inband``; the plain
-    version for a CPU tensor); the spill ELL is a row gather and the COO
-    tail a scatter-add, as for ELL overflow."""
+    version for a CPU tensor); the spill ELL is a row gather (the gather
+    kernel on the card) and the COO tail a scatter-add, as for ELL
+    overflow."""
     n = graph.n_rows_true
     x = x[:n]
     if not x.is_contiguous():

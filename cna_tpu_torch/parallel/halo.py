@@ -22,7 +22,8 @@ shard and packed into a few ELL buckets shared by every shard (chosen by
 profile), each padded only to its own width; one row gather per shard
 (``row_pos``) restores the true row order.
 
-The per-shard body is plain torch (gather + einsum per bucket): the TPU
+The per-shard body is one gather SpMM per bucket (``ops.spmm.ell_spmm``:
+the hand-written kernel on the card, gather + einsum on the CPU); the TPU
 package's is an XLA einsum, not a Pallas kernel.
 """
 
@@ -315,8 +316,9 @@ def build_halo_plan(indices, weights, colsums, n_shards, pad_to=8) -> HaloPlan:
 def place_plan(plan: HaloPlan, mesh) -> HaloPlan:
     """The plan with every (D, ...) tensor split over the mesh's ``cells``
     axis: each cell slot holds its shard's buckets, row positions, send
-    lists (it is their producer) and column sums, on its device.  Index
-    tensors become int64 there (what the row gathers take)."""
+    lists (it is their producer) and column sums, on its device.  The
+    row positions and send lists become int64 there (what the row gathers
+    take); the bucket ids stay int32, what the SpMM takes."""
     if mesh.shape["cells"] != plan.n_shards:
         raise ValueError(f"the plan has {plan.n_shards} shards and the mesh "
                          f"{mesh.shape['cells']} cell slots")
@@ -327,7 +329,7 @@ def place_plan(plan: HaloPlan, mesh) -> HaloPlan:
 
     return dataclasses.replace(
         plan,
-        bucket_indices=tuple(put(i, True) for i in plan.bucket_indices),
+        bucket_indices=tuple(put(i) for i in plan.bucket_indices),
         bucket_weights=tuple(put(w) for w in plan.bucket_weights),
         row_pos=put(plan.row_pos, True),
         send_rounds=tuple(put(s, True) for s in plan.send_rounds),

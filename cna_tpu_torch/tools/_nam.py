@@ -269,7 +269,9 @@ def _adaptive_loop(s0, step, stats, maxnsteps, nsteps):
 
     Returns (s_final, steps_taken, medkurt trail, R² trail); the trails
     are (maxnsteps,) device buffers whose entries past ``steps_taken``
-    hold an inf sentinel.
+    hold an inf sentinel.  The span ``diffusion`` counts the ``steps`` and,
+    as ``spmm_kernel``, the steps whose ``ops.spmm.diffusion_step`` launched
+    the gather SpMM kernel (every step on the card, none on the CPU).
     """
     prof = global_profiler()
     opts = dict(dtype=s0.dtype, device=s0.device)
@@ -279,6 +281,7 @@ def _adaptive_loop(s0, step, stats, maxnsteps, nsteps):
     prevmedkurt = torch.tensor(torch.inf, **opts)
     i = 0
     with prof.phase("diffusion"):
+        prof.count("spmm_kernel", 0)  # the steps add to it
         while i < maxnsteps:
             s_new = step(s)
             medkurt, r2 = stats(s_new, old_s)

@@ -20,7 +20,10 @@ from cna_tpu_torch.ops import _build
 from cna_tpu_torch.ops import ivf as ivf_ops
 from cna_tpu_torch.ops import kmeans as kmeans_ops
 from cna_tpu_torch.ops import knn as knn_ops
+from cna_tpu_torch.ops import spmm as spmm_ops
 from cna_tpu_torch.ops import spmm_banded as banded_ops
+from cna_tpu_torch.tools._nam import get_device_graph
+from cna_tpu_torch.utils import profiling
 
 from .torch_parity import need_cuda
 
@@ -554,8 +557,17 @@ def test_nam_under_banded_on_the_card_goes_through_the_kernel():
         nam_ell, keep_ell = ct.tl.nam(d, "id", nsteps=3)
         ct.tl.set_graph_format(d, "banded")
         ct.ops.reset_launch_counts()
+        prof = profiling.enable_profiling()
         nam_b, keep_b = ct.tl.nam(d, "id", nsteps=3)
-        assert ct.ops.launch_counts() == {banded_ops.KERNEL: 3}
+        profiling.disable_profiling()
+        # each step: the in-band product, and the out-of-band spill through
+        # the gather kernel where the graph has one; the spill is not a
+        # step of the gather kernel (``spmm_kernel``)
+        spill = get_device_graph(d)[0].spill_indices.shape[1] > 0
+        assert ct.ops.launch_counts() == {
+            banded_ops.KERNEL: 3, **({spmm_ops.KERNEL: 3} if spill else {})}
+        (rec,) = [r for r in prof.phases if r["phase"] == "diffusion"]
+        assert rec["steps"] == 3 and rec["spmm_kernel"] == 0
         assert (keep_b == keep_ell).all()
         err = np.abs(nam_b.to_numpy() - nam_ell.to_numpy()).max()
         assert err <= 1e-4 * np.abs(nam_ell.to_numpy()).max()
@@ -569,6 +581,7 @@ def test_nam_under_banded_on_the_card_goes_through_the_kernel():
                               Nnull=200, seed=0)
         assert 0 < p <= 1
     finally:
+        profiling.disable_profiling()
         ct.config.set_device("cpu")
         ct.config.enable_x64(True)
 
