@@ -194,7 +194,7 @@ RANK_RTOL = 1e-4
 # rows (seed 0) against the initial 10,416 centroids (n // 96), d = 20
 KMEANS_SAMPLE = 524_288
 KMEANS_ROWS_PER_CLUSTER = 96
-KMEANS_CHUNK = 32_768  # the plain version's and the yardstick's row chunk
+KMEANS_CHUNK = 32_768  # the yardstick's row chunk
 # the plain version picks by |c|^2 - 2 q.c in float32, each side within
 # about (d + 2) 2^-24 (|q|^2 + 2 |c|^2) of its value, so two centroids it
 # cannot tell apart lie within twice that of each other in float64: a row
@@ -912,25 +912,23 @@ def kmeans_phase(x):
     if not (torch.equal(again[0], ids) and torch.equal(again[1], dist)):
         raise AssertionError("kmeans_assign: two launches differ")
     del again
-    plain_ids, _ = kmeans.kmeans_assign_plain(fit_x, cent, KMEANS_CHUNK)
+    plain_ids, _ = kmeans.kmeans_assign_plain(fit_x, cent)
     rec = dict(rows=rows, c=c, d=d, **kmeans_held(
         fit_x, cent, ids, dist, plain_ids, f"kmeans_assign {rows}x{c}x{d}"))
     counters = [int(v) for v in stats.cpu()]
     rec.update(exact_candidates=counters[0], pairs=counters[1],
                exact_share=counters[0] / max(counters[1], 1))
-    valid = torch.ones(rows, dtype=torch.bool, device=x.device)
     rec["device_us_by_kernel"] = device_us_by_kernel(
         lambda: kmeans.kmeans_assign(fit_x, cent), 3)
     rec["ms"] = cuda_ms(lambda: kmeans.kmeans_assign(fit_x, cent), 10)
     rec["plain_ms"] = cuda_ms(
-        lambda: kmeans.kmeans_assign_plain(fit_x, cent, KMEANS_CHUNK), 3)
+        lambda: kmeans.kmeans_assign_plain(fit_x, cent), 3)
     rec["library_ms"] = cuda_ms(lambda: kmeans_library_step(fit_x, cent),
                                 3)
     rec["update_ms"] = cuda_ms(
-        lambda: ivf_fine._lloyd_update(fit_x, ids, valid, cent), 10)
+        lambda: ivf_fine._lloyd_update(fit_x, ids, cent), 10)
     rec["fit_8_iterations_ms"] = cuda_ms(
-        lambda: ivf_fine._kmeans_fit_matmul(fit_x, valid, init, c, 8,
-                                            KMEANS_CHUNK), 2)
+        lambda: ivf_fine._kmeans_fit_matmul(fit_x, init, 8), 2)
     flops = 2.0 * rows * c * d
     nbytes = 4.0 * (rows * d + c * d) + 8.0 * rows
     t_bytes = nbytes / PEAK_BYTES_PER_S

@@ -38,29 +38,18 @@ def embedding_clusters(embedding, n_clusters, kmeans_iters=8,
     ``partition_ordering``), computed on the configured device in float32.
     Independent of the shard count: compute once and pass as ``cid=`` when
     partitioning the same dataset at several shard counts."""
-    from ..pp.ivf_fine import _assign_chunked, _kmeans_fit_matmul, _pow2_up
+    from ..pp.ivf_fine import _kmeans_sample_fit, kmeans_assign
+    from ..utils.profiling import global_profiler
 
-    nc = int(n_clusters)
-    rng = np.random.RandomState(seed)
     if isinstance(embedding, torch.Tensor):
         x = embedding.to(torch.float32)
     else:
         x = torch.as_tensor(np.asarray(embedding, dtype=np.float32),
                             device=config.device())
-    n = x.shape[0]
-    n_fit = min(n, kmeans_sample)
-    fit_x = x
-    if n_fit < n:
-        sub = np.sort(rng.choice(n, n_fit, replace=False))
-        fit_x = x[torch.as_tensor(sub, device=x.device)]
-    # the plain assignment's (chunk, clusters) distance tile stays bounded
-    chunk = int(np.clip(_pow2_up(int(3.5e8 // max(nc, 1)) + 1) // 2,
-                        256, 32_768))
-    valid = torch.ones(n_fit, dtype=torch.bool, device=x.device)
-    init = torch.as_tensor(rng.choice(n_fit, nc, replace=False),
-                           device=x.device)
-    cent = _kmeans_fit_matmul(fit_x, valid, init, nc, kmeans_iters, chunk)
-    return fetch(_assign_chunked(x, cent, chunk))
+    cent = _kmeans_sample_fit(x, int(n_clusters),
+                              np.random.RandomState(seed), kmeans_sample,
+                              kmeans_iters, global_profiler())
+    return fetch(kmeans_assign(x.contiguous(), cent)[0].long())
 
 
 def partition_clusters(n, n_shards, cluster_cells=64, max_clusters=4096):

@@ -17,7 +17,7 @@ tensor cores (``csrc/dist_tile.cuh``) only decide which centroids are
 looked at, each of those is decided by the direct float32 sum of
 ``(q - c)^2`` in id order, and the lowest id wins among equal distances.
 The plain version takes the argmin of the matmul expansion
-``|c|^2 - 2 q.c`` over (chunk, C) tiles, the step the kernel replaced, so
+``|c|^2 - 2 q.c`` over (rows, C) tiles, the step the kernel replaced, so
 the two may pick different centroids where two distances lie within the
 expansion's rounding of each other.
 """
@@ -34,7 +34,7 @@ from ._dist_tile import MAX_D, filter_bound, kernel_d_pad
 
 KERNEL = "kmeans_assign"
 N_STATS = 2  # counters of the debug argument ``stats``
-# elements of the plain version's (chunk, C) distance tile: 1 GiB of float32
+# elements of the plain version's (rows, C) distance tile: 1 GiB of float32
 _PLAIN_TILE = 1 << 28
 
 
@@ -59,15 +59,13 @@ def _check(x, cent):
         raise ValueError("kmeans_assign needs at least one centroid")
 
 
-def kmeans_assign(x: torch.Tensor, cent: torch.Tensor, chunk=None,
-                  stats=None):
+def kmeans_assign(x: torch.Tensor, cent: torch.Tensor, stats=None):
     """Nearest centroid of every row of ``x`` ((rows, d) float32,
     contiguous) among ``cent`` ((C, d) float32, contiguous).
 
     Returns (ids (rows,) int32, squared distances (rows,) float32).
     Raises on any other dtype, a non-contiguous tensor or d outside
-    1..128, on every device.  ``chunk`` bounds the plain version's
-    (chunk, C) tile and is not read on the card.
+    1..128, on every device.
 
     ``stats`` is a debug argument that no path of the package passes: an
     int64 tensor of ``N_STATS`` counters on ``x``'s card that the launch
@@ -76,7 +74,7 @@ def kmeans_assign(x: torch.Tensor, cent: torch.Tensor, chunk=None,
     centroid) pairs it met (rows x C)."""
     _check(x, cent)
     if x.device.type == "cpu":
-        return kmeans_assign_plain(x, cent, chunk)
+        return kmeans_assign_plain(x, cent)
     if x.device.type != "cuda":
         raise ValueError(f"kmeans_assign runs on cuda or cpu, not "
                          f"{x.device}")
@@ -107,18 +105,17 @@ def kmeans_assign(x: torch.Tensor, cent: torch.Tensor, chunk=None,
     return ids, dist
 
 
-def kmeans_assign_plain(x: torch.Tensor, cent: torch.Tensor, chunk=None):
+def kmeans_assign_plain(x: torch.Tensor, cent: torch.Tensor):
     """Plain PyTorch version of the kernel, on any device: the argmin of
-    ``|c|^2 - 2 q.c`` over (chunk, C) tiles (the first of equal minima),
-    then the direct float32 squared distance to the chosen centroid.
-    Returns the same (ids int32, squared distances float32) pair."""
-    c = cent.shape[0]
-    if chunk is None:
-        chunk = max(1, _PLAIN_TILE // c)
+    ``|c|^2 - 2 q.c`` over tiles of ``_PLAIN_TILE`` elements (the first
+    of equal minima), then the direct float32 squared distance to the
+    chosen centroid.  Returns the same (ids int32, squared distances
+    float32) pair."""
+    rows = max(1, _PLAIN_TILE // cent.shape[0])
     cn = torch.sum(cent * cent, dim=1)[None, :]
     ids = torch.cat([
-        torch.argmin(cn - 2.0 * (x[lo:lo + chunk] @ cent.T), dim=1)
-        for lo in range(0, x.shape[0], chunk)])
+        torch.argmin(cn - 2.0 * (x[lo:lo + rows] @ cent.T), dim=1)
+        for lo in range(0, x.shape[0], rows)])
     dist = torch.sum((x - cent[ids]) ** 2, dim=1)
     return ids.to(torch.int32), dist
 

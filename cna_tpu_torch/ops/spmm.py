@@ -44,9 +44,11 @@ from . import _build
 KERNEL = "gather_spmm"
 MAX_BUCKETS = 4  # mirror buckets the kernel's table holds (as built)
 _MAX_VECS = 16  # column vectors a lane of the kernel holds
+# elements of the plain gather's (rows, K, S) buffer, about 1 GiB of float32
+_GATHER_BUDGET = 1 << 28
 
 
-def ell_spmm(indices, weights, x, block_rows: int | None = None):
+def ell_spmm(indices, weights, x):
     """Compute ``y[i] = sum_k weights[i, k] * x[indices[i, k]]``.
 
     Args:
@@ -54,28 +56,27 @@ def ell_spmm(indices, weights, x, block_rows: int | None = None):
         anywhere (weight must be 0 there).
       weights: (N, K) edge weights, 0 at padding.
       x: (N, S) dense right-hand side.
-      block_rows: if given, process rows in chunks of this size to bound
-        the (block_rows, K, S) gather buffer of the plain version (not
-        read on the card).
 
     Returns: (N, S) dense result.  A CUDA tensor launches the kernel (or
     raises); a CPU tensor takes ``ell_spmm_plain``.
     """
     if x.device.type == "cpu":
-        return ell_spmm_plain(indices, weights, x, block_rows)
+        return ell_spmm_plain(indices, weights, x)
     return gather_spmm(x, indices, weights)
 
 
-def ell_spmm_plain(indices, weights, x, block_rows: int | None = None):
+def ell_spmm_plain(indices, weights, x):
     """Plain PyTorch ``ell_spmm`` on any device: a row gather plus an
-    einsum, in row blocks of ``block_rows`` if given."""
-    n = indices.shape[0]
-    if block_rows is None or block_rows >= n:
+    einsum, in row blocks whose (rows, K, S) gather buffer holds at most
+    ``_GATHER_BUDGET`` elements (one row a block at the least)."""
+    n, k = indices.shape
+    per_row = max(k * x.shape[1], 1)
+    if n * per_row <= _GATHER_BUDGET:
         return _ell_spmm_block(indices, weights, x)
+    rows = max(1, _GATHER_BUDGET // per_row)
     return torch.cat([
-        _ell_spmm_block(indices[lo:lo + block_rows],
-                        weights[lo:lo + block_rows], x)
-        for lo in range(0, n, block_rows)])
+        _ell_spmm_block(indices[lo:lo + rows], weights[lo:lo + rows], x)
+        for lo in range(0, n, rows)])
 
 
 def _ell_spmm_block(indices, weights, x):
@@ -251,20 +252,12 @@ def coo_spmm_add(out, rows, cols, weights, x):
     return out.index_add_(0, rows.long(), contrib)
 
 
-def graph_spmm(graph: EllGraph, x, block_rows: int | None = None):
+def graph_spmm(graph: EllGraph, x):
     """Full hybrid SpMM: ELL bulk + COO overflow (``y = A @ x``)."""
-    y = ell_spmm(graph.indices, graph.weights, x, block_rows=block_rows)
+    y = ell_spmm(graph.indices, graph.weights, x)
     return coo_spmm_add(
         y, graph.overflow_rows, graph.overflow_cols, graph.overflow_weights, x
     )
-
-
-def _auto_block(n, k, s, budget=1 << 28):
-    """Row-block size bounding the (block, K, S) gather buffer."""
-    per_row = max(k * s, 1)
-    if n * per_row <= budget:
-        return None
-    return max(1024, budget // per_row)
 
 
 def bucket_spmm(graph: BucketEllGraph, x):
@@ -285,8 +278,7 @@ def _bucket_outputs(indices, weights, x, spmm=ell_spmm):
         if kb == 0 or nb == 0:
             outs.append(x.new_zeros((nb, x.shape[1])))
         else:
-            outs.append(spmm(idx, w, x,
-                             block_rows=_auto_block(nb, kb, x.shape[1])))
+            outs.append(spmm(idx, w, x))
     return torch.cat(outs, dim=0)
 
 
@@ -308,9 +300,7 @@ def sorted_ext_spmm(graph: SortedExtGraph, x):
 
 def _sorted_ext_plain(graph: SortedExtGraph, x):
     """Direct and mirror part of ``sorted_ext_spmm`` in plain PyTorch."""
-    y = ell_spmm_plain(graph.direct_indices, graph.direct_weights, x,
-                       block_rows=_auto_block(*graph.direct_indices.shape,
-                                              x.shape[1]))
+    y = ell_spmm_plain(graph.direct_indices, graph.direct_weights, x)
     if graph.ext_indices:
         y = y + _bucket_outputs(graph.ext_indices, graph.ext_weights, x,
                                 ell_spmm_plain)[graph.inv_pi.long()]
@@ -337,7 +327,7 @@ def block_spmm(graph, x, pair_chunk: int = 2048):
     return out.reshape(x.shape)
 
 
-def diffusion_step(s, graph, colsums, self_weight, block_rows=None):
+def diffusion_step(s, graph, colsums, self_weight):
     """One lazy-random-walk diffusion step (format-dispatched).
 
     Reference ``diffuse_stepwise`` body (``_nam.py:28,33``):
@@ -355,8 +345,7 @@ def diffusion_step(s, graph, colsums, self_weight, block_rows=None):
 
     if isinstance(graph, (SortedExtGraph, EllGraph)):
         if s.device.type == "cpu":
-            return diffusion_step_plain(s, graph, colsums, self_weight,
-                                        block_rows)
+            return diffusion_step_plain(s, graph, colsums, self_weight)
         y = gather_spmm(s, *kernel_slots(graph), colsums, self_weight)
         profiling.count("spmm_kernel")
         return _coo_add_scaled(y, graph, s, colsums)
@@ -373,7 +362,7 @@ def diffusion_step(s, graph, colsums, self_weight, block_rows=None):
     raise TypeError(f"no diffusion SpMM for {type(graph).__name__}")
 
 
-def diffusion_step_plain(s, graph, colsums, self_weight, block_rows=None):
+def diffusion_step_plain(s, graph, colsums, self_weight):
     """The diffusion step of a ``SortedExtGraph`` or an ``EllGraph`` in
     plain PyTorch on any device: ``t = s / colsums``, a gather + einsum
     product of ``t`` in row blocks, the COO spill, then
@@ -382,7 +371,7 @@ def diffusion_step_plain(s, graph, colsums, self_weight, block_rows=None):
     if isinstance(graph, SortedExtGraph):
         y = _sorted_ext_plain(graph, t)
     else:
-        y = ell_spmm_plain(graph.indices, graph.weights, t, block_rows)
+        y = ell_spmm_plain(graph.indices, graph.weights, t)
     y = coo_spmm_add(y, graph.overflow_rows, graph.overflow_cols,
                      graph.overflow_weights, t)
     return y + self_weight * t

@@ -50,7 +50,7 @@ from ..graph.ell import _np_float, _pack_ell_host, _round_up
 from ..utils.checks import kernel_outputs
 from ..utils.transfer import fetch, to_device
 from . import _build
-from .spmm import _auto_block, coo_spmm_add, ell_spmm, ell_spmm_plain
+from .spmm import coo_spmm_add, ell_spmm, ell_spmm_plain
 
 KERNEL = "banded_spmm"
 SLOT_GROUP = 4  # slots to a 16-byte load of the compacted indices
@@ -383,7 +383,7 @@ def banded_spmm_plain(lidx, weights, slab_starts, x, row_tile, slab_rows):
     inside = gidx < n_x
     w = torch.where(inside, weights, torch.zeros_like(weights))
     gidx = torch.where(inside, gidx, torch.zeros_like(gidx))
-    return ell_spmm_plain(gidx, w, x, block_rows=_auto_block(n_pad, k, s))
+    return ell_spmm_plain(gidx, w, x)
 
 
 def banded_spmm(graph: BandedGraph, x):
@@ -399,9 +399,7 @@ def banded_spmm(graph: BandedGraph, x):
         x = x.contiguous()
     y = banded_inband(graph, x)[:n]
     if graph.spill_indices.shape[1]:
-        k_sp = graph.spill_indices.shape[1]
-        y = y + ell_spmm(graph.spill_indices, graph.spill_weights, x,
-                         block_rows=_auto_block(n, k_sp, x.shape[1]))
+        y = y + ell_spmm(graph.spill_indices, graph.spill_weights, x)
     return coo_spmm_add(y, graph.overflow_rows, graph.overflow_cols,
                         graph.overflow_weights, x)
 

@@ -70,9 +70,7 @@ def diffusion_step(s, graph, colsums, self_weight, mesh) -> Sharded:
     t_all = dist.gather(t)
     out = {}
     for cp, x in t.shards.items():
-        g = graph[cp][1]
-        y = spmm.graph_spmm(g, t_all.to(x.device), block_rows=spmm._auto_block(
-            g.n_cells, g.max_degree, s.shape[1]))
+        y = spmm.graph_spmm(graph[cp][1], t_all.to(x.device))
         out[cp] = y + self_weight * x
     return Sharded(s.spec, s.shape, s.dtype, out)
 

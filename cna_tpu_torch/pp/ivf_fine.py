@@ -78,58 +78,65 @@ def _bucket16(v: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _kmeans_fit_matmul(x, valid, init_idx, n_clusters, iters, chunk):
+def _kmeans_fit_matmul(x, init_idx, iters):
     """Lloyd's algorithm at fine cluster counts.
 
     Each iteration assigns every row to its nearest centroid
-    (``kmeans_assign``: the kernel on the card, the plain (chunk, C) tile
-    on the CPU) and moves each centroid to the mean of its rows
+    (``kmeans_assign``: the kernel on the card, the plain version on the
+    CPU) and moves each centroid to the mean of its rows
     (``_lloyd_update``).  Neither step uses atomics: a scatter-add's sum
     order would change from run to run on cuda, and the centroids, and
     with them the whole index, would not be repeatable for one seed.
 
-    ``x``: (n, d) float32 rows; ``valid``: (n,) mask of the rows that take
-    part in the update; ``init_idx``: (n_clusters,) row ids of the initial
-    centroids; ``chunk`` bounds the plain assignment's tile.
+    ``x``: (n, d) float32 rows; ``init_idx``: (n_clusters,) row ids of
+    the initial centroids.
     """
     x = x.contiguous()
     cent = x[init_idx]
     for _ in range(iters):
-        cid, _ = kmeans_assign(x, cent, chunk=chunk)
-        cent = _lloyd_update(x, cid, valid, cent)
+        cid, _ = kmeans_assign(x, cent)
+        cent = _lloyd_update(x, cid, cent)
     return cent
 
 
-def _lloyd_update(x, cid, valid, cent):
-    """The centroids' new positions: the mean of each cluster's valid
-    rows, summed in a fixed order, without atomics and without a read to
-    the host.
+def _lloyd_update(x, cid, cent):
+    """The centroids' new positions: the mean of each cluster's rows,
+    summed in a fixed order, without atomics and without a read to the
+    host.
 
-    The rows are stably sorted by cluster id (invalid rows after every
-    cluster), each cluster's segment is bounded by ``searchsorted`` and
-    summed row by row in float64 by ``torch.segment_reduce``; the mean is
-    the float32 sum over the float32 count.  A cluster with no row keeps
-    its centroid."""
+    The rows are stably sorted by cluster id, each cluster's segment is
+    bounded by ``searchsorted`` and summed row by row in float64 by
+    ``torch.segment_reduce``; the mean is the float32 sum over the
+    float32 count.  A cluster with no row keeps its centroid."""
     c = cent.shape[0]
-    # keys 0 .. C, C standing for the rows left out; searching for C + 1
-    # finds the end of the rows
-    key = torch.where(valid, cid.long(), c)
+    key = cid.long()
     order = torch.argsort(key, stable=True)
     bounds = torch.searchsorted(key[order],
-                                torch.arange(c + 2, device=x.device))
+                                torch.arange(c + 1, device=x.device))
     sums = torch.segment_reduce(x[order].double(), "sum", offsets=bounds,
-                                unsafe=True, initial=0.0)[:c]
-    cnts = (bounds[1:c + 1] - bounds[:c])[:, None]
+                                unsafe=True, initial=0.0)
+    cnts = (bounds[1:] - bounds[:-1])[:, None]
     new = sums.to(x.dtype) / torch.clamp(cnts, min=1).to(x.dtype)
     return torch.where(cnts > 0, new, cent)
 
 
-def _assign_chunked(x, cent, chunk):
-    """Nearest-centroid cluster of every row (int64), through
-    ``kmeans_assign``; ``chunk`` bounds the plain version's (chunk, C)
-    distance tile at fine cluster counts."""
-    return kmeans_assign(x.contiguous(), cent.contiguous(),
-                         chunk=chunk)[0].long()
+def _kmeans_sample_fit(x, n_clusters, rng, sample, iters, profiler):
+    """Centroids of ``n_clusters`` k-means clusters of ``x`` ((n, d)
+    float32), fitted on a sample: ``min(n, sample)`` rows drawn from
+    ``rng`` without replacement (all rows when ``n <= sample``), then the
+    initial centroids among them, then ``iters`` Lloyd iterations (span
+    ``ivf_kmeans_fit``).  The IVF build and the halo partition
+    (``graph.partition``) both fit this way."""
+    n = x.shape[0]
+    n_fit = min(n, sample)
+    fit_x = x
+    if n_fit < n:
+        sub = np.sort(rng.choice(n, n_fit, replace=False))
+        fit_x = x[torch.as_tensor(sub, device=x.device)]
+    init_idx = torch.as_tensor(rng.choice(n_fit, n_clusters, replace=False),
+                               device=x.device)
+    with profiler.phase("ivf_kmeans_fit", cells=n_fit):
+        return _kmeans_fit_matmul(fit_x, init_idx, iters)
 
 
 def _kd_order(pts: np.ndarray, leaf: int = 8) -> np.ndarray:
@@ -292,27 +299,12 @@ def build_fine_index(x_dev, n, d, seed=0, g=128, q_blocks=1,
     if n_clusters is None:
         n_clusters = int(np.clip(n // target_rows, 4, 65536))
     c = int(min(n_clusters, max(n // 4, 1)))
-    rng = np.random.RandomState(seed)
-    dev = x_dev.device
 
     with prof.phase("ivf_kmeans", cells=n):
-        n_fit = min(n, kmeans_sample)
-        sub = (np.sort(rng.choice(n, n_fit, replace=False))
-               if n_fit < n else None)
-        fit_x = (x_dev[torch.as_tensor(sub, device=dev)]
-                 if sub is not None else x_dev)
-        # chunk so the plain assignment's (chunk, C) float32 distance tile
-        # stays <= ~1.4 GB
-        chunk = int(np.clip(_pow2_up(int(3.5e8 // max(c, 1)) + 1) // 2,
-                            256, 32_768))
-        valid = torch.ones(n_fit, dtype=torch.bool, device=dev)
-        init_idx = torch.as_tensor(rng.choice(n_fit, c, replace=False),
-                                   device=dev)
-        with prof.phase("ivf_kmeans_fit", cells=n_fit):
-            cent = _kmeans_fit_matmul(fit_x, valid, init_idx, c,
-                                      kmeans_iters, chunk)
+        cent = _kmeans_sample_fit(x_dev, c, np.random.RandomState(seed),
+                                  kmeans_sample, kmeans_iters, prof)
         with prof.phase("ivf_kmeans_assign", cells=n):
-            cid = fetch(_assign_chunked(x_dev, cent, chunk))
+            cid = fetch(kmeans_assign(x_dev.contiguous(), cent)[0].long())
             cent_host = fetch(cent)
 
     with prof.phase("ivf_layout", cells=n):

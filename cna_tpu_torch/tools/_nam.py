@@ -35,6 +35,7 @@ hand-written CUDA kernel of ``ops.spmm_banded``.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Callable
 
 import numpy as np
 import pandas as pd
@@ -243,15 +244,6 @@ def get_halo_plan(data, n_shards):
     return plan, ordering
 
 
-def _auto_block_rows(n, k, s):
-    """Row-block size bounding the gather buffer to ~256M elements."""
-    budget = 1 << 28
-    per_row = max(k * s, 1)
-    if n * per_row <= budget:
-        return None
-    return max(1024, budget // per_row)
-
-
 def _adaptive_loop(s0, step, stats, maxnsteps, nsteps):
     """The adaptive diffusion loop, generic over the step.
 
@@ -317,59 +309,121 @@ def _local_stats(c_counts, n_cells):
     return stats
 
 
-def _diffuse_adaptive(s0, graph, colsums, c_counts, self_weight,
-                      maxnsteps=15, nsteps=None, block_rows=None,
-                      n_true=None):
-    """Adaptive diffusion with the format-dispatched SpMM."""
-    n_cells = s0.shape[0] if n_true is None else n_true
-
-    def step(s):
-        return spmm.diffusion_step(s, graph, colsums, self_weight,
-                                   block_rows=block_rows)
-
-    return _adaptive_loop(s0, step, _local_stats(c_counts, n_cells),
-                          maxnsteps, nsteps)
-
-
-def _diffuse_adaptive_halo(s0, plan, c_counts, mesh, self_weight,
-                           maxnsteps=15, nsteps=None, n_true=None):
-    """Adaptive diffusion through the halo-exchange sharded SpMM: per
-    step each cell slot exchanges only the ghost rows its neighbours
-    reference.  ``s0`` and the result are ``Sharded`` over the cell rows;
-    the stopping statistics leave out the shard-padding rows
-    (``n_true``)."""
-    from ..parallel.halo import halo_diffusion_step
+def _sharded_stats(c_counts, n_cells):
+    """The loop's statistics of a cell-sharded state whose rows past
+    ``n_cells`` are padding."""
     from ..parallel.sharded import diffusion_stats
-
-    n_cells = s0.shape[0] if n_true is None else n_true
-
-    def step(s):
-        return halo_diffusion_step(s, plan, mesh, self_weight)
 
     def stats(s_new, old_s):
         return diffusion_stats(s_new, old_s, c_counts, n_cells)
+    return stats
 
-    return _adaptive_loop(s0, step, stats, maxnsteps, nsteps)
+
+@dataclasses.dataclass
+class _Diffusion:
+    """A diffusion set up on the path ``_diffusion`` chose.
+
+    The state's rows are the cells in the order ``order`` (a
+    ``Reordering``; None: the caller's order), then all-zero padding up to
+    ``n_rows``.  ``onehot`` places the one-hot of such padded sample codes
+    as the state, ``step`` takes one diffusion step of a state,
+    ``stats(c_counts, n_cells)`` gives ``_adaptive_loop``'s statistics and
+    ``gather`` brings a final state to ``device`` as a tensor; ``device``
+    and ``dtype`` are those of the sample counts and the NAM.  ``note``
+    is a line on the path for the progress output, or None."""
+
+    path: str
+    order: object
+    n_rows: int
+    dtype: torch.dtype
+    device: torch.device
+    onehot: Callable
+    step: Callable
+    stats: Callable
+    gather: Callable
+    note: str | None = None
+
+    def pad(self, codes):
+        """Per-cell sample codes in the state's row order, padded with -1
+        (an all-zero one-hot row) to ``n_rows``."""
+        if self.order is not None:
+            codes = codes[self.order.perm]
+        return np.pad(codes, (0, self.n_rows - codes.shape[0]),
+                      constant_values=-1)
+
+    def restore(self, s, n_cells):
+        """The ``n_cells`` cells of a tensor state, in the caller's
+        order."""
+        if self.order is None:
+            return s[:n_cells]
+        return s[torch.as_tensor(self.order.inv, device=s.device).long()]
 
 
-def _diffuse_adaptive_rows(s0, graph, colsums, c_counts, mesh, self_weight,
-                           maxnsteps=15, nsteps=None):
-    """Adaptive diffusion through the row-sharded fallback
-    (``parallel.sharded.diffusion_step``, the state all-gathered every
-    step) of an ``EllGraph``."""
-    from ..parallel import sharded
+def _diffusion(data, mesh, n_samples, self_weight, fmt=None):
+    """Choose the diffusion's path for ``data`` and set it up.
 
+    'halo' when ``mesh`` splits the cells and no format other than 'ell'
+    is set (``get_halo_plan``; a graph without a plan falls through);
+    'gspmd' under any other mesh, which shards the rows of an ``EllGraph``
+    (``parallel.sharded``) and runs any other graph unsharded, as the TPU
+    package's GSPMD program runs a graph it does not shard; 'local'
+    without one.  A local graph is the format ``fmt`` (default: the one
+    set, else 'bucketed', or 'ell' under a mesh, whose row split keeps
+    plain ELL rows) or a device graph as it is."""
+    uns = getattr(data, "uns", None)
+    user_fmt = uns.get(_FORMAT_KEY) if uns is not None else None
+    if mesh is not None:
+        from ..parallel import dist, sharded
+        from ..parallel.mesh import CELLS, Sharded, cell_rows, place
+
+        rows = cell_rows(mesh)
+        cell_shards = mesh.shape[CELLS]
+        plan = None
+        if cell_shards > 1 and user_fmt in (None, "ell"):
+            plan, order = get_halo_plan(data, cell_shards)
+        if plan is not None:
+            from ..parallel.halo import halo_diffusion_step, place_plan
+
+            placed = place_plan(plan, mesh)
+            n_pad = plan.n_shards * plan.shard_rows
+
+            def onehot(codes):
+                # each cell slot builds its own rows on its device
+                return Sharded(rows, (n_pad, n_samples), plan.dtype, {
+                    cp: _onehot_device(codes[rows.bounds((n_pad,), cp)],
+                                       n_samples, plan.dtype,
+                                       mesh.device(cp))
+                    for cp in rows.primaries if mesh.is_local(cp)})
+
+            return _Diffusion(
+                "halo", order, n_pad, plan.dtype, mesh.lead_device, onehot,
+                lambda s: halo_diffusion_step(s, placed, mesh, self_weight),
+                _sharded_stats, dist.gather,
+                f"\thalo diffusion over {cell_shards} cell shards: ghost "
+                f"fraction {plan.ghost_fraction():.3f}")
+    if fmt is None and user_fmt is None:
+        fmt = "ell" if mesh is not None else "bucketed"
+    graph, ordering = get_device_graph(data, fmt=fmt)
+    dtype, dev = graph.dtype, graph.device
+    colsums = graph.colsums(self_weight)
+    if mesh is None or ordering is not None \
+            or not isinstance(graph, EllGraph):
+        return _Diffusion(
+            "local" if mesh is None else "gspmd", ordering, graph.n_rows,
+            dtype, dev,
+            lambda codes: _onehot_device(codes, n_samples, dtype, dev),
+            lambda s: spmm.diffusion_step(s, graph, colsums, self_weight),
+            _local_stats, lambda s: s)
+    # an EllGraph's rows over the cell slots, the scaled state all-gathered
+    # every step
     graph_sh = sharded.shard_graph(graph, mesh)
-    n_cells = s0.shape[0]
-
-    def step(s):
-        return sharded.diffusion_step(s, graph_sh, colsums, self_weight,
-                                      mesh)
-
-    def stats(s_new, old_s):
-        return sharded.diffusion_stats(s_new, old_s, c_counts, n_cells)
-
-    return _adaptive_loop(s0, step, stats, maxnsteps, nsteps)
+    return _Diffusion(
+        "gspmd", None, graph.n_rows, dtype, mesh.lead_device,
+        lambda codes: place(_onehot_device(codes, n_samples, dtype, dev),
+                            rows),
+        lambda s: sharded.diffusion_step(s, graph_sh, colsums, self_weight,
+                                         mesh),
+        _sharded_stats, dist.gather)
 
 
 def diffuse_stepwise(data, s, maxnsteps=15, show_progress=False, self_weight=1):
@@ -380,25 +434,22 @@ def diffuse_stepwise(data, s, maxnsteps=15, show_progress=False, self_weight=1):
     yields DataFrames with its labels, any other input yields tensors.
     """
     out = select_output(show_progress)
-    graph, ordering = get_device_graph(data, fmt="ell")
     labels = None
     if isinstance(s, pd.DataFrame):
         labels = (s.index, s.columns)
         s = s.to_numpy()
-    s = to_device(s, graph.device, graph.dtype)
-    # a device graph may live in a permuted (compact) cell order: step in
-    # that order, yield every step in the caller's order
-    inv = None
-    if ordering is not None:
-        inv = torch.as_tensor(ordering.inv, device=s.device).long()
-        s = s[torch.as_tensor(ordering.perm, device=s.device).long()]
-    colsums = graph.colsums(self_weight)
-    block_rows = _auto_block_rows(graph.n_cells, graph.max_degree, s.shape[1])
+    # the 'ell' graph of the local path; a device graph may live in a
+    # permuted (compact) cell order: step in that order, yield every step
+    # in the caller's order
+    diff = _diffusion(data, None, None, self_weight, fmt="ell")
+    s = to_device(s, diff.device, diff.dtype)
+    n_cells = s.shape[0]
+    if diff.order is not None:
+        s = s[torch.as_tensor(diff.order.perm, device=s.device).long()]
     for i in range(maxnsteps):
         out("\ttaking step", i + 1)
-        s = spmm.diffusion_step(s, graph, colsums, self_weight,
-                                block_rows=block_rows)
-        s_out = s if inv is None else s[inv]
+        s = diff.step(s)
+        s_out = diff.restore(s, n_cells)
         if labels is not None:
             yield pd.DataFrame(fetch(s_out), index=labels[0],
                                columns=labels[1])
@@ -484,116 +535,21 @@ def _nam(data, sid_name, sids=None, nsteps=None, maxnsteps=15, self_weight=1,
     n_cells = len(cells)
     c_counts_host = np.bincount(codes[codes >= 0], minlength=n_samples)
 
+    diff = _diffusion(data, mesh, n_samples, self_weight)
+    s0 = diff.onehot(diff.pad(codes))
+    c_counts = torch.as_tensor(c_counts_host, dtype=diff.dtype,
+                               device=diff.device)
+    s, steps_taken, mk_buf, r2_buf = _adaptive_loop(
+        s0, diff.step, diff.stats(c_counts, n_cells), maxnsteps, nsteps)
     uns = getattr(data, "uns", None)
-    user_fmt = uns.get(_FORMAT_KEY) if uns is not None else None
-
-    # ---- the sharded path: explicit halo exchange ----
-    # When the mesh splits the cell axis, each cell slot diffuses its own
-    # rows and receives only the ghost rows its edges reference.  An
-    # explicit non-ELL format request takes the fallback below (those
-    # formats have no halo plan).
-    if mesh is not None:
-        from ..parallel import dist
-        from ..parallel.mesh import CELLS, Sharded, cell_rows
-
-        cell_shards = mesh.shape[CELLS]
-        if cell_shards > 1 and user_fmt in (None, "ell"):
-            plan, halo_order = get_halo_plan(data, cell_shards)
-            if plan is not None:
-                from ..parallel.halo import place_plan
-
-                dtype = plan.dtype
-                n_pad = plan.n_shards * plan.shard_rows
-                codes_h = (codes[halo_order.perm] if halo_order is not None
-                           else codes)
-                codes_p = np.pad(codes_h, (0, n_pad - codes_h.shape[0]),
-                                 constant_values=-1)
-                rows = cell_rows(mesh)
-                s0 = Sharded(rows, (n_pad, n_samples), dtype, {
-                    cp: _onehot_device(codes_p[rows.bounds((n_pad,), cp)],
-                                       n_samples, dtype, mesh.device(cp))
-                    for cp in rows.primaries if mesh.is_local(cp)})
-                c_counts = torch.as_tensor(c_counts_host, dtype=dtype,
-                                           device=mesh.lead_device)
-                s, steps_taken, mk_buf, r2_buf = _diffuse_adaptive_halo(
-                    s0, place_plan(plan, mesh), c_counts, mesh,
-                    self_weight, maxnsteps=maxnsteps, nsteps=nsteps,
-                    n_true=n_cells)
-                if uns is not None:
-                    uns[_DIFFUSION_PATH_KEY] = "halo"
-                if out.enabled:
-                    out(f"\thalo diffusion over {cell_shards} cell shards: "
-                        f"ghost fraction {plan.ghost_fraction():.3f}")
-                    _print_diffusion_trail(out, mk_buf, r2_buf, steps_taken,
-                                           nsteps, maxnsteps)
-                # back to the caller's cell order (drops padding rows too)
-                s = dist.gather(s)
-                if halo_order is not None:
-                    s = s[torch.as_tensor(halo_order.inv, device=s.device)]
-                else:
-                    s = s[:n_cells]
-                nam = (s / c_counts[None, :]).T  # (samples, cells)
-                return NamArrays(nam=nam, samples=samples, cells=cells,
-                                 nsteps=steps_taken)
-
-    # default format: degree-bucketed ELL (exact, ~nnz gathered slots);
-    # the row-sharded fallback under a mesh splits plain ELL rows evenly,
-    # so it keeps 'ell' unless the user set a format
-    fmt = None
-    if user_fmt is None:
-        fmt = "ell" if mesh is not None else "bucketed"
-    graph, ordering = get_device_graph(data, fmt=fmt)
-    is_block = ordering is not None or not isinstance(graph, EllGraph)
-    dtype, dev = graph.dtype, graph.device
-    if is_block:
-        if ordering is not None:
-            codes = codes[ordering.perm]
-        n_pad = graph.n_rows
-        if n_pad > codes.shape[0]:
-            # padding rows get code -1: an all-zero one-hot row
-            codes = np.pad(codes, (0, n_pad - codes.shape[0]),
-                           constant_values=-1)
-        n_true = n_cells
-    else:
-        n_true = None
-    # a single-width ELL bounds its (rows, K, S) gather buffer by row
-    # blocks; the bucketed formats block themselves
-    block_rows = (_auto_block_rows(graph.n_cells, graph.max_degree,
-                                   n_samples)
-                  if isinstance(graph, EllGraph) else None)
-    s0 = _onehot_device(codes, n_samples, dtype, dev)
-    c_counts = torch.as_tensor(c_counts_host, dtype=dtype, device=dev)
-    colsums = graph.colsums(self_weight)
-
-    if mesh is not None and not is_block:
-        # an EllGraph: rows over the cell slots, the scaled state
-        # all-gathered each step.  Other graphs run unsharded, as the TPU
-        # package's GSPMD program runs a graph it does not shard.
-        from ..parallel import dist
-        from ..parallel.mesh import cell_rows, place
-
-        c_counts = c_counts.to(mesh.lead_device)
-        s, steps_taken, mk_buf, r2_buf = _diffuse_adaptive_rows(
-            place(s0, cell_rows(mesh)), graph, colsums, c_counts, mesh,
-            self_weight, maxnsteps=maxnsteps, nsteps=nsteps)
-        s = dist.gather(s)
-    else:
-        s, steps_taken, mk_buf, r2_buf = _diffuse_adaptive(
-            s0, graph, colsums, c_counts, self_weight,
-            maxnsteps=maxnsteps, nsteps=nsteps, block_rows=block_rows,
-            n_true=n_true)
     if uns is not None:
-        uns[_DIFFUSION_PATH_KEY] = "gspmd" if mesh is not None else "local"
+        uns[_DIFFUSION_PATH_KEY] = diff.path
     if out.enabled:
+        if diff.note is not None:
+            out(diff.note)
         _print_diffusion_trail(out, mk_buf, r2_buf, steps_taken, nsteps,
                                maxnsteps)
-
-    if is_block:
-        # back to the caller's cell order (and drop padding rows)
-        if ordering is not None:
-            s = s[torch.as_tensor(ordering.inv, device=dev).long()]
-        else:
-            s = s[:n_cells]
+    s = diff.restore(diff.gather(s), n_cells)
     nam = (s / c_counts[None, :]).T  # (samples, cells)
     return NamArrays(nam=nam, samples=samples, cells=cells, nsteps=steps_taken)
 

@@ -365,10 +365,9 @@ def test_kmeans_fit_on_the_card_neither_syncs_nor_varies():
     from cna_tpu_torch.pp import ivf_fine
 
     x, _ = _kmeans_input(1_000_000, 1, 20, "random", seed=11)
-    fit_x = x[:200_000]
-    valid = torch.arange(200_000, device="cuda") < 190_000
+    fit_x = x[:190_000]
     init = torch.arange(0, 190_000, 95, device="cuda")
-    args = (fit_x, valid, init, len(init), 3, 32_768)
+    args = (fit_x, init, 3)
     first = ivf_fine._kmeans_fit_matmul(*args)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -740,8 +739,10 @@ def test_card_vs_cpu_at_200_samples():
 @pytest.mark.gpu
 def test_bench_torch_on_the_card_at_20k_cells():
     """``bench_torch.bench`` at 20,000 cells on the card: bench.py's record,
-    the exact blocked search (20,000 cells is 'auto's last exact size), no
-    kernel launch, a peak memory and the card's name."""
+    the exact blocked search (20,000 cells is 'auto's last exact size)
+    with no kernel launch, an association that launches only
+    ``gather_spmm``, one launch a diffusion step (3 to 15 steps, the same
+    in both runs), a peak memory and the card's name."""
     import bench_torch
 
     need_cuda()
@@ -756,7 +757,11 @@ def test_bench_torch_on_the_card_at_20k_cells():
     assert rec["vs_baseline"] is None and rec["value"] > 0
     ex = rec["extras"]
     assert ex["knn_method_resolved"] == "exact" and ex["ref"] is None
-    assert not any(ex["kernel_launches"].values())
+    launches = ex["kernel_launches"]
+    assert not any(v for k, v in launches.items() if k.startswith("graph"))
+    assert launches["assoc_cold"] == launches["assoc_warm"]
+    assert set(launches["assoc_warm"]) == {"gather_spmm"}
+    assert 3 <= launches["assoc_warm"]["gather_spmm"] <= 15
     assert ex["peak_device_gb"] > 0
     assert ex["device"]["name"] == torch.cuda.get_device_name()
     assert all(0 < p <= 1 for p in ex["p"]) and min(ex["k"]) >= 1

@@ -218,7 +218,9 @@ def test_from_scipy_buckets_array_for_array(hub_graph):
 
 @pytest.mark.parametrize("fmt,block_rows", [("ell", None), ("ell", 64),
                                             ("bucketed", None)])
-def test_diffusion_step_matches(hub_graph, fmt, block_rows):
+def test_diffusion_step_matches(hub_graph, fmt, block_rows, monkeypatch):
+    """The port's step against cna_tpu's; with ``block_rows`` both gather
+    in blocks of that many rows (the port's from its gather budget)."""
     s = np.random.RandomState(8).rand(hub_graph.shape[0], 5)
     if fmt == "ell":
         ga, gb = tpu_ell.from_scipy(hub_graph), ell.from_scipy(hub_graph)
@@ -228,11 +230,24 @@ def test_diffusion_step_matches(hub_graph, fmt, block_rows):
         ga = tpu_buckets.from_scipy_buckets(g)
         gb = buckets.from_scipy_buckets(g)
         s = s[order.perm]
+    blocks = []
+    if block_rows is not None:
+        monkeypatch.setattr(spmm, "_GATHER_BUDGET",
+                            block_rows * gb.max_degree * s.shape[1])
+        one_block = spmm._ell_spmm_block
+
+        def counted(idx, *args):
+            blocks.append(idx.shape[0])
+            return one_block(idx, *args)
+
+        monkeypatch.setattr(spmm, "_ell_spmm_block", counted)
     ya = tpu_spmm.diffusion_step(jnp.asarray(s), ga, ga.colsums(1.0), 1.0,
                                  block_rows=block_rows)
-    yb = spmm.diffusion_step(torch.as_tensor(s), gb, gb.colsums(1.0), 1.0,
-                             block_rows=block_rows)
+    yb = spmm.diffusion_step(torch.as_tensor(s), gb, gb.colsums(1.0), 1.0)
     np.testing.assert_allclose(yb.numpy(), np.asarray(ya), rtol=STEP_RTOL)
+    if block_rows is not None:
+        n = hub_graph.shape[0]
+        assert blocks == [block_rows] * (n // block_rows) + [n % block_rows]
 
 
 @pytest.mark.parametrize("fmt", ["ell", "bucketed"])

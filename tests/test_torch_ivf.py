@@ -255,34 +255,32 @@ def test_one_lloyd_step_equal_on_dyadic_points():
     ref = np.asarray(tpu_fine._kmeans_fit_matmul(
         jnp.asarray(xp), jnp.asarray(valid),
         jnp.asarray(init.astype(np.int32)), c, 1, chunk))
-    got = ivf_fine._kmeans_fit_matmul(
-        torch.from_numpy(xp), torch.from_numpy(valid),
-        torch.from_numpy(init), c, 1, chunk)
+    # the port's fit takes the rows as they are, with no padding
+    got = ivf_fine._kmeans_fit_matmul(torch.from_numpy(x),
+                                      torch.from_numpy(init), 1)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
     init_cent = jnp.asarray(xp[init])
     cid_ref = np.asarray(tpu_fine._assign_chunked(jnp.asarray(xp), init_cent,
                                                   chunk))[:n]
-    cid = ivf_fine._assign_chunked(torch.from_numpy(x),
-                                   torch.from_numpy(xp[init]), chunk)
+    cid, _ = ivf_fine.kmeans_assign(torch.from_numpy(x),
+                                    torch.from_numpy(xp[init]))
     assert np.array_equal(cid.numpy(), cid_ref)
 
 
 def test_kmeans_is_repeatable():
     x = torch.from_numpy(
         np.random.RandomState(6).randn(4_096, 5).astype(np.float32))
-    args = (x, torch.ones(4_096, dtype=torch.bool), torch.arange(0, 4_096, 64),
-            64, 4, 1024)
+    args = (x, torch.arange(0, 4_096, 64), 4)
     a = ivf_fine._kmeans_fit_matmul(*args)
     b = ivf_fine._kmeans_fit_matmul(*args)
     assert torch.equal(a, b)
 
 
-def _one_hot_update(x, cid, valid, cent):
+def _one_hot_update(x, cid, cent):
     """The Lloyd update the segmented one replaced: an exact 0/1 one-hot of
-    the valid rows multiplied back, ``oh.T @ x``."""
+    the rows multiplied back, ``oh.T @ x``."""
     c = cent.shape[0]
-    oh = ((cid.long()[:, None] == torch.arange(c)[None, :])
-          & valid[:, None]).to(x.dtype)
+    oh = (cid.long()[:, None] == torch.arange(c)[None, :]).to(x.dtype)
     cnts = oh.sum(dim=0)
     new = (oh.T @ x) / torch.clamp(cnts, min=1.0)[:, None]
     return torch.where(cnts[:, None] > 0, new, cent)
@@ -292,40 +290,42 @@ def _one_hot_update(x, cid, valid, cent):
 def test_segmented_update_equals_one_hot_on_dyadic_points(n, d, c, seed):
     """On dyadic points every sum is exact in float32 and float64, so the
     fixed-order segmented update gives the one-hot matmul's centroids bit
-    for bit: invalid rows take no part, an empty cluster keeps its
-    centroid."""
+    for bit, and an empty cluster keeps its centroid."""
     rng = np.random.RandomState(seed)
     x = torch.from_numpy(dyadic(rng.randn(n, d), bits=6).astype(np.float32))
     cent = torch.from_numpy(dyadic(rng.randn(c, d), bits=6).astype(
         np.float32))
     cid = torch.from_numpy(rng.randint(0, c, n).astype(np.int32))
     cid[cid == 3] = 4                        # cluster 3 has no row
-    valid = torch.from_numpy(rng.rand(n) > 0.2)
-    cid[~valid & (cid == 5)] = 6
-    valid[cid == 6] = False                  # cluster 6 has only invalid rows
-    got = ivf_fine._lloyd_update(x, cid, valid, cent)
-    want = _one_hot_update(x, cid, valid, cent)
+    got = ivf_fine._lloyd_update(x, cid, cent)
+    want = _one_hot_update(x, cid, cent)
     assert torch.equal(got, want)
-    assert torch.equal(got[3], cent[3]) and torch.equal(got[6], cent[6])
+    assert torch.equal(got[3], cent[3])
     assert not torch.equal(got[4], cent[4])
 
 
-def test_kmeans_assign_on_cpu_equals_assign_chunked():
-    """The wrapper on a CPU tensor is the plain version: the ids of
-    ``_assign_chunked`` as int32 (whatever the chunk), each with its
-    direct float32 squared distance."""
+def test_kmeans_assign_on_cpu_equals_assign_chunked(monkeypatch):
+    """The wrapper on a CPU tensor is the plain version, with the same ids
+    whatever the plain version's tile (one tile, or seven of 300 rows and
+    one of 200), each with its direct float32 squared distance."""
     from cna_tpu_torch.ops import kmeans
 
     x = torch.from_numpy(
         np.random.RandomState(9).randn(2_000, 7).astype(np.float32))
     cent = x[::37].contiguous()
     before = dict(_build.launch_counts())
-    ids, dist = kmeans.kmeans_assign(x, cent, chunk=300)
+    ids, dist = kmeans.kmeans_assign(x, cent)
     assert _build.launch_counts() == before
     assert ids.dtype == torch.int32 and dist.dtype == torch.float32
     assert ids.shape == dist.shape == (2_000,)
-    assert torch.equal(ids.long(), ivf_fine._assign_chunked(x, cent, 256))
-    assert torch.equal(ids, kmeans.kmeans_assign(x, cent)[0])
+    assert torch.equal(ids, kmeans.kmeans_assign_plain(x, cent)[0])
+    monkeypatch.setattr(kmeans, "_PLAIN_TILE", 300 * cent.shape[0])
+    tiles, argmin = [], torch.argmin
+    monkeypatch.setattr(torch, "argmin", lambda t, **kw: (
+        tiles.append(t.shape[0]), argmin(t, **kw))[1])
+    tiled, tiled_dist = kmeans.kmeans_assign(x, cent)
+    assert tiles == [300] * 6 + [200]
+    assert torch.equal(tiled, ids) and torch.equal(tiled_dist, dist)
     assert torch.equal(dist, ((x - cent[ids.long()]) ** 2).sum(1))
     full = ((x[:, None, :] - cent[None]) ** 2).sum(-1)
     assert bool((dist <= full.min(1).values * (1 + 1e-5)).all())
@@ -350,23 +350,18 @@ def test_kmeans_assign_rejects_what_the_kernel_cannot_take(what):
 
 
 def test_kmeans_fit_is_repeatable_with_the_segmented_update():
-    """Invalid rows and a duplicated initial centroid: the fit gives the
-    same bits twice, no invalid row moves a centroid, and after one
-    iteration the duplicate, whose cluster is empty (ties go to the lower
-    id), keeps its position."""
+    """A duplicated initial centroid: the fit gives the same bits twice,
+    and after one iteration the duplicate, whose cluster is empty (ties
+    go to the lower id), keeps its position."""
     x = torch.from_numpy(
-        np.random.RandomState(10).randn(4_096, 5).astype(np.float32))
-    valid = torch.arange(4_096) < 4_000
+        np.random.RandomState(10).randn(4_000, 5).astype(np.float32))
     init = torch.arange(0, 3_968, 62)
     init[1] = init[0]
-    args = (x, valid, init, 64, 4, 1024)
+    args = (x, init, 4)
     a = ivf_fine._kmeans_fit_matmul(*args)
     b = ivf_fine._kmeans_fit_matmul(*args)
     assert torch.equal(a, b)
-    far = x.clone()
-    far[4_000:] = 1e6
-    assert torch.equal(ivf_fine._kmeans_fit_matmul(far, *args[1:]), a)
-    one = ivf_fine._kmeans_fit_matmul(x, valid, init, 64, 1, 1024)
+    one = ivf_fine._kmeans_fit_matmul(x, init, 1)
     assert torch.equal(one[1], x[0]) and not torch.equal(one[0], x[0])
 
 
