@@ -301,10 +301,16 @@ def check_inputs(data, y, sid_name, batches, covs, donorids,
     _require("donorids", donorids, pd.Series)
     if y is None:
         raise TypeError("expected y as a pandas Series; received None")
-    if not set(y.index).issubset(set(data.obs[sid_name])):
+    # one hash of the N-cell column; the containment checks then compare
+    # sets of about S entries.  In the column's own dtype the ids box (and
+    # a NaN id fails to match) as the column's values do in ``set()``
+    sid = data.obs[sid_name]
+    samples = pd.Index(sid.unique(), dtype=sid.dtype)
+    sample_set, y_set = set(samples), set(y.index)
+    if not y_set.issubset(sample_set):
         print("WARNING: the index of 'y' has entries that never appear in "
               "data.obs[sid_name]; those samples will be ignored.")
-    if not set(data.obs[sid_name]).issubset(set(y.index)):
+    if not sample_set.issubset(y_set):
         raise ValueError(
             "data.obs[sid_name] contains sample ids missing from the index of 'y'."
         )
@@ -321,14 +327,14 @@ def check_inputs(data, y, sid_name, batches, covs, donorids,
     if covs is not None:
         filter_samples = (
             ~(y.isna() | covs.isna().any(axis=1))
-            & y.index.isin(data.obs[sid_name].unique())
+            & y.index.isin(samples)
         )
         if donorids is not None:
             print("WARNING: covariate conditioning does not currently account "
                   "for multiple samples per donor; the adjustment may be "
                   "incomplete (expected to matter little in most cases).")
     else:
-        filter_samples = ~np.isnan(y) & y.index.isin(data.obs[sid_name].unique())
+        filter_samples = ~np.isnan(y) & y.index.isin(samples)
 
     n_valid = filter_samples.sum()
     if n_valid < 10 and not allow_low_sample_size:
@@ -482,20 +488,57 @@ def _write_back(data, res, kept, key_added):
         warnings.warn(
             f"data.obs already has a column named '{key_added}'; its "
             "contents will be replaced with this run's coefficients.")
-    data.obs[key_added] = np.nan
-    data.obs.loc[kept, key_added] = res.ncorrs
+    coef = np.full(len(kept), np.nan)
+    coef[kept] = res.ncorrs
+    data.obs[key_added] = coef
 
     if res.fdrs is not None:  # local_test=False produces no FDR curve
         # vectorized equivalent of the reference's per-cell apply
         # (``_association.py:233-237``): each cell gets the minimum FDR
-        # among thresholds <= |coef|, else 1 (incl. non-kept NaN cells)
-        thresholds = res.fdrs.threshold.to_numpy()
+        # among thresholds <= |coef|, else 1 (bin 0, which also holds the
+        # non-kept NaN cells)
         prefix_min_fdr = np.minimum.accumulate(res.fdrs.fdr.to_numpy())
-        coefs = data.obs[key_added].to_numpy(dtype=float)
-        abs_coefs = np.abs(coefs)
-        pos = np.searchsorted(thresholds, np.nan_to_num(abs_coefs, nan=-1.0),
-                              side="right")
-        fdr_col = np.where(pos > 0,
-                           prefix_min_fdr[np.maximum(pos - 1, 0)], 1.0)
-        fdr_col = np.where(np.isnan(coefs), 1.0, fdr_col)
-        data.obs[f"{key_added}_fdr"] = fdr_col
+        bin_fdr = np.concatenate([np.ones(1, prefix_min_fdr.dtype),
+                                  prefix_min_fdr])
+        data.obs[f"{key_added}_fdr"] = bin_fdr[_threshold_bins(
+            res.fdrs.threshold.to_numpy(), np.abs(coef))]
+
+
+def _threshold_bins(thresholds, a):
+    """``np.searchsorted(thresholds, a, side='right')`` for ascending
+    ``thresholds`` of at least two entries (0 where ``a`` is NaN), without
+    a binary search per entry.
+
+    The guess is the uniform grid's arithmetic, ``floor((a - t0) / dt) +
+    1`` clipped to ``[0, nb]``, which is off only by rounding on the
+    ``np.arange`` grid the entry point builds; each guess is then moved one
+    bin at a time until ``thresholds[pos - 1] <= a < thresholds[pos]``
+    holds in float64, so the result is exact on any ascending grid (only
+    slower where the grid is not uniform).  The number of entries the
+    correction moved is the ``fdr_bin_fixups`` counter of the open span."""
+    nb = len(thresholds)
+    t0, dt = thresholds[0], thresholds[1] - thresholds[0]
+    # in place on one float buffer: each new N-sized array costs its
+    # page faults
+    buf = np.subtract(a, t0)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        np.divide(buf, dt, out=buf)
+    np.add(buf, 1.0, out=buf)
+    np.fmax(buf, 0.0, out=buf)  # NaN -> 0
+    np.minimum(buf, nb, out=buf)
+    pos = buf.astype(np.intp)  # on [0, nb] truncation is the floor
+    # NaN sentinels: no comparison with one holds, so no entry leaves
+    # [0, nb]; mode='clip' only skips take's buffered bounds check
+    lower = np.concatenate([[np.nan], thresholds])  # lower[p] = t[p - 1]
+    upper = np.concatenate([thresholds, [np.nan]])  # upper[p] = t[p]
+    off = np.greater(lower.take(pos, out=buf, mode="clip"), a)
+    off |= np.less_equal(upper.take(pos, out=buf, mode="clip"), a)
+    todo = np.flatnonzero(off)
+    global_profiler().count("fdr_bin_fixups", int(todo.size))
+    while todo.size:
+        p, at = pos[todo], a[todo]
+        step = (upper[p] <= at).astype(np.intp) - (lower[p] > at)
+        moving = step != 0
+        todo = todo[moving]
+        pos[todo] += step[moving]
+    return pos

@@ -223,3 +223,164 @@ def test_progress_output_matches(graphs, inputs, capsys):
     (wa, na), (wb, nb) = map(_numbers, texts)
     assert wb == wa and "median kurtosis" in wa
     np.testing.assert_allclose(nb, na, rtol=RTOL)
+
+
+def _ids_case(name):
+    """(obs sample column, y, batches, covs, donorids, allow_low) of one
+    ``check_inputs`` case: 12 samples of 5 cells each unless the case says
+    otherwise."""
+    ids = np.arange(12)
+    y = pd.Series(np.linspace(0.0, 1.0, 12), index=ids)
+    col = pd.Series(np.repeat(ids, 5))
+    batches = covs = donorids = None
+    allow = False
+    if name == "float_ids":
+        col, y.index = col.astype(float) + 0.5, ids + 0.5
+    elif name == "str_ids":
+        col, y.index = col.map("s{:02d}".format), [f"s{i:02d}" for i in ids]
+    elif name == "categorical_unused":
+        # unused categories count for nothing, as in set() of the column
+        col = pd.Series(pd.Categorical(
+            col.map("s{:02d}".format),
+            categories=["zz"] + [f"s{i:02d}" for i in ids] + ["zy"]))
+        y.index = [f"s{i:02d}" for i in ids]
+    elif name == "y_extra_sample":
+        y = pd.concat([y, pd.Series([0.5], index=[99])])  # the WARNING
+    elif name == "cell_sample_missing_from_y":
+        y = y.iloc[1:]
+    elif name == "nan_sample_id":
+        col = col.astype(float)
+        col.iloc[7] = np.nan
+    elif name == "nan_sample_id_str":
+        col = col.map("s{:02d}".format)
+        col.iloc[7] = np.nan
+        y.index = [f"s{i:02d}" for i in ids]
+    elif name == "nan_y":
+        y.iloc[[2, 5]] = np.nan
+    elif name == "nan_covariate_row":
+        covs = pd.DataFrame({"age": np.arange(12.0), "sex": np.ones(12)},
+                            index=ids)
+        covs.iloc[4, 1] = np.nan
+    elif name in ("low_sample_size", "low_sample_size_allowed"):
+        y.iloc[:4] = np.nan
+        allow = name.endswith("allowed")
+    elif name == "batches_with_donorids":
+        batches = pd.Series(ids % 3, index=ids)
+        donorids = pd.Series(ids // 2, index=ids)
+    elif name == "covs_with_donorids":
+        covs = pd.DataFrame({"age": np.arange(12.0)}, index=ids)
+        donorids = pd.Series(ids // 2, index=ids)
+    elif name == "y_not_a_series":
+        y = y.to_numpy()
+    return col, y, batches, covs, donorids, allow
+
+
+CHECK_CASES = {  # case -> what both packages must do with it
+    "int_ids": None, "float_ids": None, "str_ids": None,
+    "categorical_unused": None, "y_extra_sample": "WARNING",
+    "cell_sample_missing_from_y": ValueError,
+    "nan_sample_id": ValueError, "nan_sample_id_str": ValueError,
+    "nan_y": None, "nan_covariate_row": None,
+    "low_sample_size": ValueError, "low_sample_size_allowed": None,
+    "batches_with_donorids": ValueError, "covs_with_donorids": "WARNING",
+    "y_not_a_series": TypeError,
+}
+
+
+@pytest.mark.parametrize("case", list(CHECK_CASES))
+def test_check_inputs_matches(case, capsys):
+    """``check_inputs`` hashes the sample column once; it prints, raises and
+    returns what ``cna_tpu``'s set-based version does, bit for bit."""
+    from types import SimpleNamespace
+
+    from cna_tpu.tools._association import check_inputs as tpu_check
+    from cna_tpu_torch.tools._association import check_inputs
+
+    out = []
+    for chk in (tpu_check, check_inputs):
+        col, y, batches, covs, donorids, allow = _ids_case(case)
+        data = SimpleNamespace(obs=pd.DataFrame({"sample": col}))
+        try:
+            got = chk(data, y, "sample", batches, covs, donorids, allow)
+        except (TypeError, ValueError) as e:
+            got = (type(e), str(e))
+        out.append((got, capsys.readouterr().out))
+    (want, printed_want), (got, printed) = out
+    assert printed == printed_want
+    expect = CHECK_CASES[case]
+    assert ("WARNING" in printed) == (expect == "WARNING")
+    if isinstance(expect, type):
+        assert want[0] is expect and got == want
+        return
+    for a, b in zip(got, want):
+        assert a.equals(b) and a.dtype == b.dtype
+        assert a.index.equals(b.index)
+    if case == "nan_covariate_row":
+        assert not got[1].iloc[4] and got[1].sum() == 11
+
+
+def _searchsorted_write_back(kept, ncorrs, thresholds, fdr):
+    """The write-back's columns as the port first computed them: a NaN
+    column filled through ``.loc[kept]`` and a binary search per cell."""
+    obs = pd.DataFrame(index=pd.RangeIndex(len(kept)).astype(str))
+    obs["coef"] = np.nan
+    obs.loc[kept, "coef"] = ncorrs
+    coefs = obs["coef"].to_numpy(dtype=float)
+    pos = np.searchsorted(thresholds, np.nan_to_num(np.abs(coefs), nan=-1.0),
+                          side="right")
+    prefix_min = np.minimum.accumulate(fdr)
+    fdr_col = np.where(pos > 0, prefix_min[np.maximum(pos - 1, 0)], 1.0)
+    return coefs, np.where(np.isnan(coefs), 1.0, fdr_col)
+
+
+@pytest.mark.parametrize("grid", ["arange", "arange_f32_fdr", "geometric",
+                                  "repeated"])
+def test_write_back_bins_are_exact(grid):
+    """``coef`` and ``coef_fdr`` equal the NaN-fill and searchsorted
+    formula bit for bit on coefficients placed on the thresholds, one ulp
+    either side, below the first, above the last, negative, and on
+    non-kept cells; on a grid that is not uniform the correction loop
+    keeps them exact."""
+    from types import SimpleNamespace
+
+    from cna_tpu_torch.tools._association import _write_back
+    from cna_tpu_torch.utils import profiling
+
+    rng = np.random.RandomState(5)
+    maxcorr = 0.7371
+    if grid.startswith("arange"):  # the entry point's grid
+        th = np.arange(maxcorr / 4, maxcorr, maxcorr / 400)
+    elif grid == "geometric":
+        th = np.geomspace(1e-3, maxcorr, 300)
+    else:  # ascending with ties
+        th = np.sort(np.round(rng.uniform(0.1, maxcorr, 300), 2))
+    on = th[rng.permutation(len(th))]
+    c = np.concatenate([on, np.nextafter(on, np.inf), np.nextafter(on, 0),
+                        [0.0, th[0] / 2, th[-1] * 2, maxcorr, 5.0],
+                        rng.uniform(-1, 1, 2000)])
+    c = np.concatenate([c, -c])
+    kept = np.ones(len(c) + 40, bool)
+    kept[rng.choice(len(kept), 40, replace=False)] = False
+    fdr = rng.uniform(0, 1, len(th))
+    if grid == "arange_f32_fdr":  # a float32 card's FDR curve
+        fdr, c = fdr.astype(np.float32), c.astype(np.float32)
+    data = SimpleNamespace(obs=pd.DataFrame(
+        index=pd.RangeIndex(len(kept)).astype(str)))
+    res = SimpleNamespace(ncorrs=c, fdrs=pd.DataFrame(
+        {"threshold": th, "fdr": fdr}))
+    prof = profiling.enable_profiling()
+    try:
+        with prof.phase("writeback"):
+            _write_back(data, res, kept, "coef")
+    finally:
+        profiling.disable_profiling()
+    coef, coef_fdr = _searchsorted_write_back(kept, c, th, fdr)
+    assert data.obs["coef"].dtype == np.float64
+    assert np.array_equal(data.obs["coef"].to_numpy(), coef, equal_nan=True)
+    got = data.obs["coef_fdr"].to_numpy()
+    assert got.dtype == coef_fdr.dtype and np.array_equal(got, coef_fdr)
+    assert (got[~kept] == 1.0).all()
+    # the arithmetic guess misses some cells that lie exactly on a
+    # threshold (in float32 none does); the exact check moved them
+    fixups = prof.phases[0]["fdr_bin_fixups"]
+    assert fixups > 0 if c.dtype == np.float64 else fixups >= 0

@@ -122,6 +122,18 @@ def test_counters_are_the_steps_and_the_host_reads(dataset, profiler,
     assert collect["host_reads"] >= 10
 
 
+def test_writeback_counts_fdr_bin_fixups(dataset, profiler):
+    """The write-back's span counts the cells whose arithmetic FDR bin the
+    exact check moved (`fdr_bin_fixups`); without the local test there is
+    no bin to find and no counter."""
+    d, y = dataset
+    ct.tl.association(d, y, "id", Nnull=100, seed=1)
+    ct.tl.association(d, y, "id", Nnull=100, seed=1, local_test=False)
+    first, second = [r for r in profiler.phases if r["phase"] == "writeback"]
+    assert 0 <= first["fdr_bin_fixups"] <= d.n_obs
+    assert "fdr_bin_fixups" not in second
+
+
 def test_profiling_off_records_nothing():
     profiling.disable_profiling()
     prof = profiling.global_profiler()
