@@ -430,7 +430,9 @@ def association(data, y, sid_name, batches=None, covs=None, donorids=None,
     ``nam_savepoint`` names an opt-in NAM savepoint file
     (``utils.checkpoint``).  ``mesh``: a ``parallel.make_mesh`` mesh (or
     ``parallel.launch.global_mesh`` across processes) over which the
-    diffusion, the null scoring and the local test are sharded.
+    diffusion, the null scoring and the local test are sharded.  On a
+    card the root span ``association`` counts ``mem_peak``,
+    ``torch.cuda.max_memory_allocated()`` at its close.
     """
     out = select_output(show_progress)
 
@@ -474,6 +476,11 @@ def association(data, y, sid_name, batches=None, covs=None, donorids=None,
 
         with prof.phase("writeback"):
             _write_back(data, res, kept, key_added)
+        if prof.enabled and dev.namresid.device.type == "cuda":
+            # the allocator's peak of the process so far, a host-side
+            # statistic (no device read); never reset here
+            prof.count("mem_peak",
+                       torch.cuda.max_memory_allocated(dev.namresid.device))
 
     if return_full:
         return res

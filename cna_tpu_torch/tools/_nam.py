@@ -678,7 +678,8 @@ def _resid_nam_core(arr, covs_arr, batches, samples, ridges=None,
                     show_progress=False):
     """Device core of the residualization: returns a dict of tensors.
 
-    ``arr``: (n, cells) NAM rows aligned to ``samples``.
+    ``arr``: (n, cells) NAM rows aligned to ``samples``.  Profiling span
+    ``gram_svd``: the standardization and Gram eigendecomposition.
     """
     out = select_output(show_progress)
     n = arr.shape[0]
@@ -731,7 +732,8 @@ def _resid_nam_core(arr, covs_arr, batches, samples, ridges=None,
     # the exposed namresid is THIS matrix, while svd_nam additionally
     # centers+standardizes its own local copy, reference ``:103-104,163``)
     nam_r = nam_r / moments.colstd(nam_r, ddof=1, axis=0)[None, :]
-    _, u, svs, v = linalg.standardize_and_gram_svd(nam_r)
+    with global_profiler().phase("gram_svd"):
+        _, u, svs, v = linalg.standardize_and_gram_svd(nam_r)
     return dict(m=m_proj, r=int(c.shape[1]), namresid=nam_r, u=u, svs=svs,
                 v=v)
 

@@ -19,7 +19,9 @@ only on one that has not completed.
 
 ``count(name, n)`` adds ``n`` to counter ``name`` of the innermost open
 span (``host_reads``: the tensors ``utils.transfer`` pulls to the host;
-``steps``: the diffusion's steps; ``u``: an IVF search's probe count).
+``steps``: the diffusion's steps; ``u``: an IVF search's probe count;
+``mem_peak``: on the card, the allocator's peak bytes of the process when
+an association closes).
 ``trace()`` records a ``torch.profiler`` trace (CPU and CUDA activity)
 into ``trace_dir``; spans inside it appear as named ranges.
 

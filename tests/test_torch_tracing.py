@@ -29,6 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 ASSOC_TREE = {"association": {"check_inputs", "nam", "residualize", "test",
                               "writeback"},
               "nam": {"diffusion"},
+              "residualize": {"gram_svd"},
               "test": {"observed", "null", "fdr", "collect"}}
 
 
