@@ -141,6 +141,12 @@ def column_r2_from_sums(sums, n_true, ddof=1):
     return torch.where(safe, r2, torch.full_like(r2, torch.inf))
 
 
+def _group_onehot(group_ids, num_groups, dtype):
+    """(n, num_groups): 1 where row j of the data is in group g."""
+    groups = torch.arange(num_groups, device=group_ids.device)
+    return (group_ids[:, None] == groups[None, :]).to(dtype)
+
+
 def grouped_mean(x, group_ids, num_groups):
     """Mean of rows of ``x`` within each group.
 
@@ -148,11 +154,24 @@ def grouped_mean(x, group_ids, num_groups):
     Returns (num_groups, x.shape[1]).  Used for per-batch neighborhood
     abundance means (reference ``_batch_kurtosis``, ``_nam.py:80-82``).
     """
-    groups = torch.arange(num_groups, device=x.device)
-    onehot = (group_ids[:, None] == groups[None, :]).to(x.dtype)
+    onehot = _group_onehot(group_ids, num_groups, x.dtype)
     counts = onehot.sum(dim=0)
     sums = onehot.T @ x
     return sums / counts[:, None]
+
+
+def group_mean_weights(group_ids, num_groups, dtype):
+    """(num_groups, n) averaging matrix ``G``: row g holds 1/count_g at the
+    rows of group g, so ``G @ x`` is ``grouped_mean(x, ...)`` up to
+    rounding, and ``(G @ A) @ x`` the group means of ``A @ x``."""
+    onehot = _group_onehot(group_ids, num_groups, dtype)
+    return onehot.T / onehot.sum(dim=0)[:, None]
+
+
+def pearson_kurtosis_of_means(means):
+    """Pearson kurtosis (Fisher + 3) of each column of per-batch means
+    (num_batches, C): ``batch_kurtosis`` from means computed elsewhere."""
+    return kurtosis(means, axis=0) + 3.0
 
 
 def batch_kurtosis(nam, batch_ids, num_batches):
@@ -162,5 +181,4 @@ def batch_kurtosis(nam, batch_ids, num_batches):
     (neighborhood), take the mean abundance within each batch, then the
     kurtosis of those ``num_batches`` values, plus 3 (Pearson convention).
     """
-    means = grouped_mean(nam, batch_ids, num_batches)
-    return kurtosis(means, axis=0) + 3.0
+    return pearson_kurtosis_of_means(grouped_mean(nam, batch_ids, num_batches))

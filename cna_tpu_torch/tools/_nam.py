@@ -642,35 +642,44 @@ _DEFAULT_RIDGES = (1e5, 1e4, 1e3, 1e2, 1e1, 1e0, 1e-1, 1e-2, 1e-3, 1e-4, 0)
 def _ridge_sweep(nam_c, c, ridges, batch_ids, n_batch_cols, num_batches):
     """The cumulative ridge residualization sweep.
 
-    Replicates reference ``_nam.py:141-156`` exactly, including the
-    compounding ``NAM_ = M @ NAM_`` across iterations and last-M-wins:
-    for each ridge in the schedule build
-    ``M = I - C (C'C + ridge*n*L)^-1 C'``, apply it cumulatively, and
-    stop once the median batch kurtosis of the running NAM is <= 6.
+    Applies the projectors of reference ``_nam.py:141-156``, with its
+    compounding across iterations and last-M-wins: for each ridge in the
+    schedule build ``M = I - C (C'C + ridge*n*L)^-1 C'``, apply it on top
+    of the earlier ones, and stop once the median batch kurtosis of the
+    running NAM is <= 6.  The projectors are composed on the sample axis
+    (``M_cum = M_i @ ... @ M_1``, S x S), each step reads the running
+    NAM's per-batch means as ``(G @ M_cum) @ nam_c`` (``G`` the B x S
+    averaging matrix), and the NAM is multiplied once, ``M_cum @ nam_c``,
+    after the stop; float64 rounding is the only difference from the
+    reference's ``NAM_ = M @ NAM_`` at every step.
 
     Returns (nam_resid, M_last, n_ridges_used, median-kurtosis trail);
     trail entries past the exit hold an inf sentinel.  Profiling span
-    ``ridge_sweep``, counter ``ridges`` (the steps taken).
+    ``ridge_sweep``, counters ``ridges`` (the steps taken) and
+    ``nam_products`` (the S x S by S x N products: the one after the stop).
     """
     prof = global_profiler()
     nridges = ridges.shape[0]
-    medk_buf = torch.full((nridges,), torch.inf, dtype=nam_c.dtype,
-                          device=nam_c.device)
-    nam_r = nam_c
-    m_proj = torch.eye(nam_c.shape[0], dtype=nam_c.dtype, device=nam_c.device)
+    opts = dict(dtype=nam_c.dtype, device=nam_c.device)
+    medk_buf = torch.full((nridges,), torch.inf, **opts)
+    g = moments.group_mean_weights(batch_ids, num_batches, nam_c.dtype)
+    m_proj = torch.eye(nam_c.shape[0], **opts)
+    m_cum = m_proj
     i = 0
     with prof.phase("ridge_sweep"):
         while i < nridges:
             m_proj = linalg.residual_projector(c, ridge=ridges[i],
                                                n_batch_cols=n_batch_cols)
-            nam_r = m_proj @ nam_r
-            kurt = moments.batch_kurtosis(nam_r, batch_ids, num_batches)
+            m_cum = m_proj @ m_cum
+            kurt = moments.pearson_kurtosis_of_means((g @ m_cum) @ nam_c)
             medk = moments.median(kurt)
             medk_buf[i] = medk
             i += 1
             if bool(scalar(medk <= 6)):
                 break
+        nam_r = m_cum @ nam_c
         prof.count("ridges", i)
+        prof.count("nam_products", 1)
     return nam_r, m_proj, i, medk_buf
 
 
@@ -720,6 +729,7 @@ def _resid_nam_core(arr, covs_arr, batches, samples, ridges=None,
             ridges if ridges is not None else _DEFAULT_RIDGES, **opts)
         nam_r, m_proj, nridges, medk_buf = _ridge_sweep(
             nam_c, c, ridge_schedule, ids, nbcols, nb)
+        del nam_c  # one float64 NAM alive beside the cast, not two
         nam_r, m_proj = nam_r.to(arr.dtype), m_proj.to(arr.dtype)
         if out.enabled:
             medk = fetch(medk_buf)
@@ -741,9 +751,11 @@ def _resid_nam_core(arr, covs_arr, batches, samples, ridges=None,
 def _resid_nam(NAM, covs, batches, ridges=None, npcs=None, show_progress=False):
     """Residualize covariates/batches out of the NAM, standardize, SVD.
 
-    Mirrors reference ``_resid_nam`` (``_nam.py:118-177``), including the
-    cumulative ``NAM_ = M @ NAM_`` compounding across the ridge sweep and
-    the last-M-wins coupling into the association test.
+    Mirrors reference ``_resid_nam`` (``_nam.py:118-177``): the ridge
+    sweep applies the same projectors, composed on the sample axis (so
+    float64 rounding is the only difference from the reference's
+    cumulative ``NAM_ = M @ NAM_``), with the last-M-wins coupling into
+    the association test.
 
     ``NAM`` may be a DataFrame (samples x cells) or a ``NamArrays``.
     Returns a ``Result`` with the reference's fields (large DataFrames

@@ -1,5 +1,6 @@
 """The spans and counters of the batch path (CPU): ``batch_qc`` (counter
-``dropped``) under ``nam`` and ``ridge_sweep`` (counter ``ridges``) under
+``dropped``) under ``nam`` and ``ridge_sweep`` (counters ``ridges`` and
+``nam_products``, the one S x N product of the composed projectors) under
 ``residualize``, in the tree of one association; their counts are the
 plain reference's; the one-batch path opens neither span (no QC runs and
 no ridge is swept there, so there is nothing to count)."""
@@ -50,6 +51,7 @@ def test_batch_spans_sit_in_the_job_tree_and_count_the_reference(offset):
                            covs.to_numpy(), nulls)
     assert qc["dropped"] == int((~want["qc_keep"]).sum())
     assert sweep["ridges"] == want["steps"] >= 1
+    assert sweep["nam_products"] == 1
     assert (qc["dropped"] > 0) == (offset == 0.3)
     assert (sweep["ridges"] >= 3) == (offset == 0.6)
 
@@ -64,3 +66,4 @@ def test_one_batch_opens_no_batch_span():
     assert {"nam", "residualize"} <= names
     assert not names & {"batch_qc", "ridge_sweep"}
     assert not any("dropped" in r or "ridges" in r for r in recs)
+    assert not any("nam_products" in r for r in recs)
